@@ -1,0 +1,89 @@
+"""Build the package's hand-written CUDA kernels at first use.
+
+Every ``*.cu`` source under ``repro_torch/csrc/`` is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library with a plain C interface, all
+``nvcc`` processes started together, into ``build/kernels/`` at the root
+of the checkout (listed in ``.gitignore``).  A library's file name carries
+a hash of its source and flags, so an unchanged source is not rebuilt.
+The wrappers load the libraries with ``ctypes``: pointers are passed as
+``data_ptr()`` integers and the launch stream is PyTorch's current one.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+#: per-source compiler output of the last build (ptxas register and
+#: shared-memory report), and its wall time in seconds
+build_log: Dict[str, str] = {}
+build_seconds: Dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    for cand in (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
+                 else None, shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every stale source (one ``nvcc`` each, run in parallel);
+    raise with the compiler's output if any fails.  Returns the library
+    path of every source by stem."""
+    srcs = sorted(CSRC.glob("*.cu"))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {src.stem: _target(src) for src in srcs}
+    running = []
+    for src in srcs:
+        out = paths[src.stem]
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((src, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for src, out, tmp, proc, t0 in running:
+        log, _ = proc.communicate()
+        build_seconds[src.stem] = time.perf_counter() - t0
+        build_log[src.stem] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name} "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` (built on first
+    call)."""
+    if name not in _libs:
+        paths = build_all()
+        if name not in paths:
+            raise KeyError(f"no CUDA source csrc/{name}.cu")
+        _libs[name] = ctypes.CDLL(str(paths[name]))
+    return _libs[name]

@@ -1,0 +1,922 @@
+"""Closed-loop vectorized cluster engine: batched worker queues and DAG
+flights replayed on the device.
+
+The port of ``repro/sim/vector_queue.py`` without fault mode.  Each trial
+replays a whole Poisson arrival stream against a finite worker pool:
+
+* raptor: every arriving job claims ``F`` workers (HA placement: a
+  uniform-random free worker in an AZ the flight has not used, else any
+  free worker; a queued member is handed the next-released worker), races
+  its flight over the workflow graph's per-member sequences and
+  dependency masks (:func:`dag_flight_trial`), and releases its workers;
+* stock: the fork-join at TASK granularity — every job's per-task ready
+  times are merged into one sorted stream per trial and booked best-fit
+  in ready order; staged ready times come from a bounded fixed point over
+  stage depth.
+
+Both replays run on the blocked event-replay substrate
+(:mod:`repro_torch.sim.scan_core`); ``block=1`` is the sequential oracle.
+The trial axis is a leading batch dimension: one call books every trial.
+Draws come from an explicit ``torch.Generator`` seeded from ``seed``, so
+the port matches the reference by distribution; fed the reference's
+drawn events (:mod:`repro_torch.sim.interop`), its booking step is
+bitwise the reference's.
+
+Backends: ``booking_backend`` "scan" (the substrate) or "kernel" (the
+``queue_booking`` CUDA kernel) books the stock stream;
+``summary_backend`` "torch" or "kernel" (the ``maxplus_scan`` CUDA
+kernel) runs the log-depth summary prefix.  Fault injection and
+non-default recovery policies are refused here; they come with the fault
+mode slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core.analytics import summarize_batch
+from repro_torch.core.workflow import (WorkflowGraph, compile_spec, fanout,
+                                       task)
+from repro_torch.sim.cluster import OverheadModel, lognormal_params
+from repro_torch.sim.faults import FaultProfile
+from repro_torch.sim.policies import NO_RECOVERY, RecoveryPolicy
+from repro_torch.sim.scan_core import (blocked_bestfit_booking,
+                                       blocked_event_replay,
+                                       stock_booking_fins)
+from repro_torch.sim.vector import unit_draws
+from repro_torch.sim.workloads import (ETL_QUARANTINE_MS, KEYGEN_CV,
+                                       KEYGEN_OFFSET_MS, THUMB_CV,
+                                       THUMB_DOWNLOAD_MS, WC_STORAGE_HOP_MS,
+                                       etl_graph, keygen_graph,
+                                       mapreduce_graph, thumbnail_graph,
+                                       thumbnail_stock_graph, wordcount_graph)
+from repro_torch.sim.workloads import arrival_rate_hz as _rate_for_load
+
+_INF = float("inf")
+BOOKING_BACKENDS = ("scan", "kernel")
+SUMMARY_BACKENDS = ("torch", "kernel")
+
+
+@dataclasses.dataclass(frozen=True)
+class QueueWorkload:
+    """One compiled manifest bound to the vector engines' service model.
+
+    ``graph`` is the workflow compiler's IR: frozen and hashable, it is
+    the static key of the cached trial factories.  The stock graph may
+    differ (thumbnail's stock functions re-download the source, so its
+    task list drops the shared download stage and each task pays
+    ``stock_extra_means`` as a second service draw); conditionals are
+    always flattened for stock.  ``faults``/``recovery`` are carried for
+    the reference's workload signature; this package's engines refuse an
+    enabled profile or a non-default policy.
+    """
+    graph: WorkflowGraph
+    flight: int
+    dist: str = "exp"                       # "exp" | "lognorm" | "pareto"
+    cv: float = 1.0
+    offset_ms: float = 0.0
+    raptor_stage_ms: float = 0.5            # stream hop per attempt
+    stock: WorkflowGraph = None             # alternative stock-path graph
+    stock_extra_means: Tuple[float, ...] = None
+    stock_stage_ms: float = 0.0             # storage round-trip per stage hop
+    fail_prob: float = 0.0
+    work_est_ws: float = 2.0
+    faults: FaultProfile = None
+    recovery: RecoveryPolicy = None
+
+    @property
+    def name(self) -> str:
+        return self.graph.name
+
+    @property
+    def tasks(self) -> Tuple[str, ...]:
+        return self.graph.tasks
+
+    @property
+    def task_means(self) -> Tuple[float, ...]:
+        return self.graph.means
+
+    def stock_graph(self) -> WorkflowGraph:
+        g = self.stock if self.stock is not None else self.graph
+        return g.flatten()
+
+    def stock_extras(self) -> Tuple[float, ...]:
+        if self.stock_extra_means is None:
+            return (0.0,) * self.stock_graph().K
+        return self.stock_extra_means
+
+
+def keygen_queue(fail_prob: float = 0.0, faults: FaultProfile = None,
+                 recovery: RecoveryPolicy = None) -> QueueWorkload:
+    """ssh-keygen: two independent entropy-bound tasks, flight of 2."""
+    return QueueWorkload(
+        keygen_graph(), flight=2,
+        dist="lognorm", cv=KEYGEN_CV, offset_ms=KEYGEN_OFFSET_MS,
+        fail_prob=fail_prob, work_est_ws=1.9,
+        faults=faults, recovery=recovery)
+
+
+def wordcount_queue(fail_prob: float = 0.0, faults: FaultProfile = None,
+                    recovery: RecoveryPolicy = None) -> QueueWorkload:
+    """Map-reduce: split -> 4 maps -> reduce; stock pays the S3 hop."""
+    return QueueWorkload(wordcount_graph(), flight=2,
+                         dist="exp", stock_stage_ms=WC_STORAGE_HOP_MS,
+                         fail_prob=fail_prob, work_est_ws=4.2,
+                         faults=faults, recovery=recovery)
+
+
+def thumbnail_queue(fail_prob: float = 0.0, faults: FaultProfile = None,
+                    recovery: RecoveryPolicy = None) -> QueueWorkload:
+    """Download + 4 resizes; stock functions each re-download the source."""
+    return QueueWorkload(
+        thumbnail_graph(), flight=4,
+        dist="lognorm", cv=THUMB_CV,
+        stock=thumbnail_stock_graph(),
+        stock_extra_means=(THUMB_DOWNLOAD_MS,) * 4,
+        fail_prob=fail_prob, work_est_ws=5.6,
+        faults=faults, recovery=recovery)
+
+
+def etl_queue(rank: int = 6, fail_prob: float = 0.08,
+              faults: FaultProfile = None,
+              recovery: RecoveryPolicy = None) -> QueueWorkload:
+    """Workload-bank ETL pipeline: a ``validate`` guard routes poison jobs
+    to quarantine (the conditional mask-select path); ``fail_prob``
+    doubles as the poison rate."""
+    g = etl_graph(rank)
+    work = (sum(g.means) - ETL_QUARANTINE_MS) / 1000.0
+    return QueueWorkload(g, flight=3, dist="exp",
+                         stock_stage_ms=WC_STORAGE_HOP_MS,
+                         fail_prob=fail_prob, work_est_ws=work,
+                         faults=faults, recovery=recovery)
+
+
+def mapreduce_queue(rank: int = 4, reducers: int = 2,
+                    fail_prob: float = 0.0,
+                    faults: FaultProfile = None,
+                    recovery: RecoveryPolicy = None) -> QueueWorkload:
+    """Workload-bank ranked map-reduce with a sync barrier."""
+    g = mapreduce_graph(rank, reducers)
+    return QueueWorkload(g, flight=3, dist="exp",
+                         stock_stage_ms=WC_STORAGE_HOP_MS,
+                         fail_prob=fail_prob,
+                         work_est_ws=sum(g.means) / 1000.0,
+                         faults=faults, recovery=recovery)
+
+
+def heavytail_queue(num_tasks: int = 2, mean_ms: float = 1000.0,
+                    flight: int = 2, cv: float = 2.5, dist: str = "pareto",
+                    fail_prob: float = 0.0,
+                    faults: FaultProfile = None,
+                    recovery: RecoveryPolicy = None) -> QueueWorkload:
+    """Heavy-tailed service family for the streaming traffic bank:
+    "pareto" or high-cv "lognorm", both unit-mean so ``work_est_ws`` and
+    the load targets stay comparable with :func:`exponential_queue`."""
+    if dist not in ("pareto", "lognorm"):
+        raise ValueError(
+            f"heavy-tail dist must be 'pareto' or 'lognorm', got {dist!r}")
+    if cv <= 0.0:
+        raise ValueError(f"cv must be positive, got {cv}")
+    return QueueWorkload(
+        compile_spec(fanout(task("t", mean_ms), num_tasks),
+                     name=f"{dist}{num_tasks}"),
+        flight=flight, dist=dist, cv=cv, fail_prob=fail_prob,
+        work_est_ws=num_tasks * mean_ms / 1000.0,
+        faults=faults, recovery=recovery)
+
+
+def exponential_queue(num_tasks: int = 2, mean_ms: float = 1000.0,
+                      flight: int = 2, fail_prob: float = 0.0,
+                      faults: FaultProfile = None,
+                      recovery: RecoveryPolicy = None) -> QueueWorkload:
+    """Pure exp(mu) independent tasks — the §4.2.1 theory's hypothesis."""
+    return QueueWorkload(
+        compile_spec(fanout(task("t", mean_ms), num_tasks),
+                     name=f"exp{num_tasks}"),
+        flight=flight, dist="exp", fail_prob=fail_prob,
+        work_est_ws=num_tasks * mean_ms / 1000.0,
+        faults=faults, recovery=recovery)
+
+
+# --------------------------------------------------------------------------
+# one flight race with dependency masks (the DAG-aware event scan)
+# --------------------------------------------------------------------------
+
+def _pick(x, idx):
+    """``x[..., idx]`` per leading index: the exact one-hot selection."""
+    return torch.gather(x, -1, idx[..., None])[..., 0]
+
+
+def dag_flight_trial(z_seq, fail_seq, t_join, seq, dep_mask, slat,
+                     direct_start: bool = False, num_events: int = None,
+                     no_failures: bool = False, cond=None,
+                     has_deps: bool = None):
+    """Replay flights of a (possibly DAG) manifest, batched over leading
+    dimensions.
+
+    ``z_seq`` ``(..., F, K)`` are each member's sequence-ordered attempt
+    times, ``fail_seq`` ``(..., F, K)`` bool their injected errors,
+    ``t_join`` ``(..., F)`` the members' join times; ``seq`` ``(F, K)`` the
+    member sequences and ``dep_mask`` ``(K, K)`` bool (``dep_mask[t, d]``:
+    task t needs task d), both on the device; ``slat`` the stream
+    half-RTT.  A member whose next task has unmet dependencies parks
+    (``fin = inf``) and is woken by the completion broadcast; member joins
+    are events too (``cur = -1``) unless ``direct_start``.  ``num_events``
+    overrides the trip count with a tighter exact budget;
+    ``no_failures`` drops the attempted mask (error-free attempts end
+    only when their task completes).  ``cond`` is the IR's conditional
+    select pair ``(cond_guard, cond_sense)``: a guard completes on its
+    first finished attempt, and the same event cancels the arm gated on
+    the opposite outcome.  ``has_deps`` saves a device read of
+    ``dep_mask`` when the caller knows it.  Returns ``(t_resp, ok,
+    t_release)`` with per-member worker release times.
+    """
+    F, K = z_seq.shape[-2:]
+    lead = tuple(z_seq.shape[:-2])
+    dev = z_seq.device
+    if has_deps is None:
+        has_deps = bool(dep_mask.any())
+    has_cond = cond is not None and any(g >= 0 for g in cond[0])
+    if has_cond:
+        guards = {g for g in cond[0] if g >= 0}
+        c_gated = torch.tensor([g >= 0 for g in cond[0]], device=dev)
+        c_guard = torch.tensor([max(g, 0) for g in cond[0]], device=dev)
+        c_sense = torch.tensor([bool(s) for s in cond[1]], device=dev)
+        c_is_guard = torch.tensor([k in guards for k in range(K)],
+                                  device=dev)
+    k_ar = torch.arange(K, device=dev)
+    f_ar = torch.arange(F, device=dev)
+    done = torch.zeros(lead + (K,), dtype=torch.bool, device=dev)
+    released = torch.zeros(lead + (F,), dtype=torch.bool, device=dev)
+    trel = torch.zeros(lead + (F,), dtype=z_seq.dtype, device=dev)
+    attempted = torch.zeros(lead + (F, K), dtype=torch.bool, device=dev)
+    if direct_start:
+        attempted[..., 0] = True
+        cur = seq[:, 0].expand(lead + (F,))
+        curfail = fail_seq[..., 0]
+        fin = t_join + z_seq[..., 0]
+    else:
+        cur = torch.full(lead + (F,), -1, dtype=seq.dtype, device=dev)
+        curfail = torch.zeros(lead + (F,), dtype=torch.bool, device=dev)
+        fin = t_join
+    outcome = (torch.zeros(lead + (K,), dtype=torch.bool, device=dev)
+               if has_cond else None)
+    finished = torch.zeros(lead, dtype=torch.bool, device=dev)
+    ok = torch.zeros(lead, dtype=torch.bool, device=dev)
+    t_resp = torch.full(lead, _INF, dtype=z_seq.dtype, device=dev)
+    seq_b = seq.expand(lead + (F, K))
+    # F join events (unless direct_start) + at most F*K attempt completions
+    steps = (int(num_events) if num_events is not None
+             else (F * K if direct_start else F * (K + 1)))
+    for _ in range(steps):
+        t = fin.amin(dim=-1)
+        e_idx = fin.argmin(dim=-1)
+        e_hot = f_ar == e_idx[..., None]
+        any_busy = ~torch.isinf(t)
+        task = _pick(cur, e_idx)                      # -1 on a join event
+        raw_ok = ~torch.any(curfail & e_hot, dim=-1)
+        succ = any_busy & (task >= 0) & raw_ok
+        t_hot = k_ar == task[..., None]
+        if has_cond:
+            # a guard's first finished attempt COMPLETES it either way;
+            # the attempt's error bit becomes the recorded branch outcome
+            ev_guard = torch.any(t_hot & c_is_guard, dim=-1)
+            succ = succ | (any_busy & (task >= 0) & ev_guard)
+            outcome = torch.where(t_hot & succ[..., None], raw_ok[..., None],
+                                  outcome)
+        done2 = done | (t_hot & succ[..., None])
+        if has_cond:
+            # mask-select: cancel the arm gated on the opposite outcome
+            done2 = done2 | (c_gated & done2[..., c_guard]
+                             & (outcome[..., c_guard] != c_sense))
+        busy = ~torch.isinf(fin)
+        # first-success broadcast preempts peers mid-`task` (§3.3.4)
+        preempted = (succ[..., None] & (cur == task[..., None]) & busy
+                     & ~e_hot)
+        freed = (e_hot & any_busy[..., None]) | preempted
+        busy_after = busy & ~freed
+        idle = ~busy_after & ~released
+        # next task per member: first in its shifted order neither
+        # complete nor already attempted by this member (head-of-line)
+        cand = ~done2[..., seq]
+        if not no_failures:
+            cand = cand & ~attempted
+        has_next = torch.any(cand, dim=-1)
+        j = cand.to(torch.uint8).argmax(dim=-1)
+        nxt = _pick(seq_b, j)
+        z_next = _pick(z_seq, j)
+        can_start = idle & has_next
+        if has_deps:
+            can_start = can_start & ~torch.any(
+                dep_mask[nxt] & ~done2[..., None, :], dim=-1)
+        # the finisher chains immediately; preempted/woken members restart
+        # after the stream half-RTT
+        start = torch.where(e_hot, t[..., None], t[..., None] + slat)
+        fin_try = start + z_next
+        fin2 = torch.where(can_start, fin_try,
+                           torch.where(busy_after, fin, _INF))
+        cur2 = torch.where(can_start, nxt, torch.where(busy_after, cur, -1))
+        curfail2 = torch.where(can_start, _pick(fail_seq, j),
+                               busy_after & curfail)
+        if not no_failures:
+            attempted = attempted | ((k_ar == j[..., None])
+                                     & can_start[..., None])
+        newly_rel = idle & ~has_next
+        released2 = released | newly_rel
+        trel2 = torch.where(newly_rel, t[..., None], trel)
+        complete = torch.all(done2, dim=-1)
+        no_busy = torch.all(torch.isinf(fin2), dim=-1)
+        terminal = (complete | no_busy) & ~finished
+        trel = torch.where(terminal[..., None] & ~released2, t[..., None],
+                           trel2)
+        released = released2 | terminal[..., None]
+        ok = torch.where(terminal, complete, ok)
+        t_resp = torch.where(terminal, t, t_resp)
+        finished = finished | terminal
+        done, cur, curfail, fin = done2, cur2, curfail2, fin2
+    return t_resp, ok, trel
+
+
+def _race_f2k2(z_seq, t_join):
+    """Closed form of the error-free F=2, K=2 dep-free direct-start race
+    (keygen): the earlier first-attempt completion chains its member
+    straight into the other task, and the flight completes at the
+    earlier of the other member's first finish and that chained attempt;
+    both members release then.  The same adds and selections as the
+    generic event scan, so bitwise its result."""
+    f_first = t_join + z_seq[..., 0]
+    t1 = f_first.amin(dim=-1)
+    f_other = f_first.amax(dim=-1)
+    second = t1 + _pick(z_seq[..., 1], f_first.argmin(dim=-1))
+    t_resp = torch.minimum(f_other, second)
+    return (t_resp, torch.ones_like(t_resp, dtype=torch.bool),
+            t_resp[..., None].expand(t_resp.shape + (2,)))
+
+
+# --------------------------------------------------------------------------
+# closed-loop trial bodies (one whole arrival stream per trial)
+# --------------------------------------------------------------------------
+
+def auto_config(engine: str, scan: str = "auto",
+                device="cpu") -> Tuple[int, str, str]:
+    """Default (block, resolver, scan) per engine and device.
+
+    On the CPU the reference's measured host defaults hold: the chain
+    mode is "seq", raptor runs fused unrolled blocks of 8, stock the
+    sequential oracle, a forced log-depth chain the adaptive
+    ``ceil(n/3)`` split with unrolled blocks.  On a CUDA card the eager
+    engine is bound by kernel launches, so the defaults are the
+    configurations with the fewest passes, measured at full width
+    (``python -m repro_torch.launch.bench_config``, PERF.md): raptor
+    chains fixpoint blocks of 64 through the log-depth prefix (its outer
+    Jacobi converges in a few passes), stock runs the order-statistic
+    fixpoint on blocks of 256.  ``scan`` other than "auto" forces the
+    chain mode.
+    """
+    if torch.device(device).type == "cuda":
+        if engine == "stock":
+            return 256, "fixpoint", "seq" if scan == "auto" else scan
+        return 64, "fixpoint", "logdepth" if scan == "auto" else scan
+    if scan == "auto":
+        scan = "seq"
+    if scan == "logdepth":
+        return 0, "unrolled", scan
+    if engine == "stock":
+        return 1, "fixpoint", scan
+    return 8, "unrolled", scan
+
+
+def _raptor_mode(fail_prob: float, faults: FaultProfile = None,
+                 policy: RecoveryPolicy = None) -> bool:
+    """Whether any attempt can fail (gates race budgets and the error
+    draws).  Raises for the reference's fault mode — an enabled fault
+    profile or a non-default recovery policy — which is not ported yet."""
+    if ((faults is not None and faults.enabled)
+            or (policy is not None and not policy.is_default)):
+        raise ValueError(
+            "fault mode (an enabled FaultProfile or a non-default "
+            "RecoveryPolicy) is not ported yet; it comes with the "
+            "fault-mode slice (ROADMAP.md §1 item 5)")
+    return fail_prob > 0.0
+
+
+def _f32(x, device):
+    """A float32 scalar on ``device``: engine parameters enter the
+    arithmetic rounded to float32 first, as the reference's traced
+    arguments do."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _raptor_job_draws(gen, arrivals, *, W, A, F, K, seq, dist, cv, rho,
+                      means, offset, stage_oh, oh_mu, oh_sigma, fail_prob):
+    """Per-job event tensors for ``(T, jobs)`` arrivals — the event tuple
+    :func:`_raptor_job_body` books.  Shared by the whole-trace trial and
+    the streaming engine's per-microbatch draw."""
+    dev = arrivals.device
+    lead = tuple(arrivals.shape)
+    rho, offset, stage_oh = (_f32(x, dev) for x in (rho, offset, stage_oh))
+    means = _f32(means, dev)
+    # one draw for the AZ-shared S block and the private X block
+    sx = unit_draws(gen, lead + (A + F, K), dist, cv)
+    s, x = sx[..., :A, :], sx[..., A:, :]
+    oh = torch.exp(_f32(oh_mu, dev) + _f32(oh_sigma, dev) * torch.randn(
+        lead + (F + 1,), generator=gen, device=dev))
+    # member 0 pays the arrival overhead; later members a second
+    # control-plane hop (the fork's recursive invocation, §3.3.2)
+    t_oh = oh[..., :1] + torch.where(torch.arange(F, device=dev) == 0, 0.0,
+                                     oh[..., 1:])
+    # service mixture for EVERY possible member->AZ placement, in the
+    # reference's arithmetic order: z_case[..., a, m, :] = member m's
+    # sequence-ordered attempt times were it placed in AZ a
+    z_case = (rho * s[..., :, None, :] + (1 - rho) * x[..., None, :, :]) \
+        * means + offset + stage_oh
+    z_case = torch.gather(z_case, -1, seq.expand(lead + (A, F, K)))
+    # placement tie-break randomness: one priority per (job, worker)
+    prio = torch.rand(lead + (W,), generator=gen, device=dev)
+    if fail_prob == 0.0:
+        return (arrivals, z_case, t_oh, prio)
+    fail = torch.rand(lead + (F, K), generator=gen, device=dev) < fail_prob
+    fail_seq = torch.gather(fail, -1, seq.expand(lead + (F, K)))
+    return (arrivals, z_case, fail_seq, t_oh, prio)
+
+
+def _raptor_race_budget(block: int, F: int, K: int, anyfail: bool,
+                        direct: bool, has_deps: bool):
+    """(race_events, closed_form) for the flight race inside the replay.
+
+    With no injected errors every race event is a distinct task
+    completion, so K completions (+ the F joins when members cannot start
+    mid-attempt) bound the race exactly, and the F=2/K=2 dep-free case
+    close-forms entirely.  The block=1 oracle keeps the full budget and
+    the generic event scan.
+    """
+    if block <= 1:
+        return None, False
+    race_events = (K if not anyfail else F * K) + (0 if direct else F)
+    closed_form = (F == 2 and K == 2 and not anyfail and direct
+                   and not has_deps)
+    return race_events, closed_form
+
+
+def _raptor_job_body(*, W, A, F, w_az, seq, dep_mask, has_deps, slat,
+                     direct, closed_form, race_events, anyfail,
+                     has_failseq, trace, cond=None):
+    """The one-job booking body (HA placement + flight race) the blocked
+    substrate replays, shared by the whole-trace trial and the streaming
+    scheduler.  Every op broadcasts over the leading (trials, block,
+    event) dimensions the substrate hands it."""
+    K = seq.shape[1]
+    w_ar = torch.arange(W, device=w_az.device)
+
+    def job_body(wfree, inp):
+        if has_failseq:
+            arrival, zcj, fj, ohj, prj = inp
+        else:
+            arrival, zcj, ohj, prj = inp
+            fj = torch.zeros(tuple(arrival.shape) + (F, K), dtype=torch.bool,
+                             device=arrival.device)
+        # HA placement: a free member picks a uniform-random free worker
+        # in an AZ the flight hasn't used, else a uniform-random free
+        # worker; a queued member is handed the next-released worker
+        wf = wfree
+        fresh = torch.ones_like(wf, dtype=torch.bool)  # workers in unused AZs
+        arr = arrival[..., None]
+        t_disp, widx, m_az = [], [], []
+        for _ in range(F):
+            t_any = wf.amin(dim=-1)
+            contended = t_any > arrival
+            free = wf <= arr
+            # one argmax: fresh free workers rank in (1, 2], other free in
+            # (0, 1], busy at -1 — random-uniform per tier
+            key = torch.where(fresh & free, prj + 1.0,
+                              torch.where(free, prj, -1.0))
+            w = torch.where(contended, wf.argmin(dim=-1), key.argmax(dim=-1))
+            az = w_az[w]
+            fresh = fresh & (w_az != az[..., None])
+            t_disp.append(torch.maximum(arrival, t_any))
+            widx.append(w)
+            m_az.append(az)
+            wf = torch.where(w_ar == w[..., None], _INF, wf)
+        t_disp = torch.stack(t_disp, dim=-1)
+        widx = torch.stack(widx, dim=-1)
+        m_az = torch.stack(m_az, dim=-1)
+        # the AZ-shared S block follows the actual placement (co-located
+        # members re-correlate); an exact row selection
+        z_seq = torch.gather(
+            zcj, -3, m_az[..., None, :, None].expand(
+                tuple(m_az.shape[:-1]) + (1, F, K)))[..., 0, :, :]
+        if closed_form:
+            t_resp, ok, t_rel = _race_f2k2(z_seq, t_disp + ohj)
+        else:
+            t_resp, ok, t_rel = dag_flight_trial(
+                z_seq, fj, t_disp + ohj, seq, dep_mask, slat,
+                direct_start=direct, num_events=race_events,
+                no_failures=not anyfail, cond=cond, has_deps=has_deps)
+        # a padded (dead) job must book nothing: releases gated to -inf
+        live = ~torch.isinf(arrival)
+        rel = torch.where(live[..., None], t_rel, float("-inf"))
+        out = (t_resp - arrival, ok)
+        if trace:
+            out = out + (t_disp, widx.to(torch.int32), t_rel)
+        return (widx, rel), out
+
+    return job_body
+
+
+@functools.lru_cache(maxsize=None)
+def _graph_consts(graph: WorkflowGraph, F: int, W: int, A: int,
+                  device: str):
+    """Manifest constants on the device: member sequences, dependency
+    mask, the worker->AZ map, and whether members may start mid-attempt
+    (only if a late joiner can never find its first task already done)."""
+    seq_np = graph.member_sequences(F)
+    seq = torch.as_tensor(np.asarray(seq_np), dtype=torch.long,
+                          device=device)
+    dep_mask = torch.as_tensor(np.asarray(graph.dep_mask()),
+                               dtype=torch.bool, device=device)
+    w_az = torch.arange(W, device=device) % A
+    direct = (not graph.has_deps
+              and len({int(s) for s in seq_np[:, 0]}) == F)
+    return seq, dep_mask, w_az, direct
+
+
+def _raptor_stream_fns(W: int, A: int, F: int, graph: WorkflowGraph,
+                       dist: str, fail_prob: float, block: int = 1,
+                       resolver: str = "fixpoint", scan: str = "seq",
+                       summary_backend: str = "torch", trace: bool = False,
+                       device="cpu"):
+    """``(draw_events, step)`` for the streaming scheduler and the
+    whole-trace trial.
+
+    * ``draw_events(gen, arrivals, rho, means, offset, cv, stage_oh,
+      oh_mu, oh_sigma) -> events`` — the per-job event tensors for
+      ``(T, mb)`` sorted absolute-ms arrivals.  Padded (``inf``) arrivals
+      are dead events: they book nothing and leave the W-state bitwise
+      untouched.
+    * ``step(wf, events, slat) -> (wf', outs)`` — book ``(T, mb)`` events
+      through :func:`blocked_event_replay` on the ``(T, W)`` W-state.
+      Because an event observes earlier events only through the carried
+      W-vector, consecutive ``step`` calls over slices of a stream equal
+      one replay of the concatenated stream, bitwise.
+    """
+    anyfail = _raptor_mode(fail_prob)
+    device = str(torch.device(device))
+    seq, dep_mask, w_az, direct = _graph_consts(graph, F, W, A, device)
+    K = graph.K
+
+    def draw_events(gen, arrivals, rho, means, offset, cv, stage_oh,
+                    oh_mu, oh_sigma):
+        return _raptor_job_draws(
+            gen, arrivals, W=W, A=A, F=F, K=K, seq=seq, dist=dist, cv=cv,
+            rho=rho, means=means, offset=offset, stage_oh=stage_oh,
+            oh_mu=oh_mu, oh_sigma=oh_sigma, fail_prob=fail_prob)
+
+    def step(wf, events, slat):
+        mb = int(events[0].shape[-1])
+        blk = block if block else max(1, -(-mb // 3))
+        race_events, closed_form = _raptor_race_budget(
+            blk, F, K, anyfail, direct, graph.has_deps)
+        job_body = _raptor_job_body(
+            W=W, A=A, F=F, w_az=w_az, seq=seq, dep_mask=dep_mask,
+            has_deps=graph.has_deps, slat=_f32(slat, wf.device),
+            direct=direct, closed_form=closed_form, race_events=race_events,
+            anyfail=anyfail, has_failseq=fail_prob > 0.0, trace=trace,
+            cond=graph.cond_static)
+        return blocked_event_replay(job_body, wf, events, block=blk,
+                                    resolver=resolver, scan=scan,
+                                    summary_backend=summary_backend)
+
+    return draw_events, step
+
+
+def _raptor_trial_fn(jobs: int, W: int, A: int, F: int,
+                     graph: WorkflowGraph, dist: str, fail_prob: float,
+                     block: int = 1, resolver: str = "fixpoint",
+                     scan: str = "seq", summary_backend: str = "torch",
+                     trace: bool = False, device="cpu"):
+    """Closed-loop raptor replay of ``trials`` whole arrival streams at
+    once: Poisson arrivals, the shared event draw, and one
+    :func:`blocked_event_replay` of the shared booking body from an idle
+    pool.  ``block=0`` is the adaptive log-depth split ``ceil(jobs/3)``.
+    ``trace=True`` also returns ``(arrival, dispatch, worker, release)``
+    per (job, member)."""
+    draw_events, step = _raptor_stream_fns(
+        W, A, F, graph, dist, fail_prob, block, resolver, scan,
+        summary_backend, trace, device)
+
+    def trial(gen, trials, rate_hz, rho, means, offset, cv, stage_oh, slat,
+              oh_mu, oh_sigma):
+        dev = gen.device
+        gaps = torch.empty((trials, jobs), device=dev).exponential_(
+            generator=gen)
+        arrivals = torch.cumsum(gaps * _f32(1000.0 / rate_hz, dev), dim=-1)
+        events = draw_events(gen, arrivals, rho, means, offset, cv,
+                             stage_oh, oh_mu, oh_sigma)
+        wf0 = torch.zeros((trials, W), device=dev)
+        _, outs = step(wf0, events, slat)
+        if trace:
+            resp, ok, t_disp, widx, t_rel = outs
+            return resp, ok, (arrivals, t_disp, widx, t_rel)
+        return outs
+
+    return trial
+
+
+def _stock_trial_fn(jobs: int, W: int, graph: WorkflowGraph, dist: str,
+                    fail_prob: float, passes: int = 1,
+                    has_extras: bool = False, block: int = 1,
+                    backend: str = "scan", scan: str = "seq",
+                    summary_backend: str = "torch", trace: bool = False,
+                    device="cpu"):
+    """Closed-loop stock replay at TASK granularity (task FCFS), all
+    trials at once.
+
+    All ``jobs * K`` per-task ready times of a trial merge into one
+    sorted stream that is booked best-fit in ready order
+    (:func:`repro_torch.sim.scan_core.stock_booking_fins`, or the
+    ``queue_booking`` kernel when ``backend="kernel"``); the trace's
+    final pass resolves worker ids through the generic fixed point.
+    Staged ready times depend on queueing, so ``passes`` rounds of a
+    fixed point over stage depth materialize them (dep-free graphs are
+    exact in one).  The merged stream is sorted stably: exact ties occur
+    only among one job's dep-free roots (shared arrival + overhead), and
+    the reference's unstable sort may order those differently, which the
+    statistics do not see.  ``trace=True`` also returns ``(arrival,
+    ready, start, fin, worker)``.
+    """
+    device = str(torch.device(device))
+    K = graph.K
+    dep_rows = np.array(graph.dep_mask(), dtype=bool)
+    has_deps = bool(dep_rows.any())
+    dep_mask = torch.as_tensor(dep_rows, device=device)
+    root = torch.as_tensor(~dep_rows.any(axis=1), device=device)
+    N = jobs * K
+    if not block:
+        block = max(1, -(-N // 3))      # adaptive log-depth split
+
+    def trial(gen, trials, rate_hz, rho, means, extras, offset, cv,
+              stage_oh, oh_mu, oh_sigma):
+        dev = gen.device
+        T = trials
+        rho_t = _f32(rho, dev)
+        gaps = torch.empty((T, jobs), device=dev).exponential_(generator=gen)
+        arrivals = torch.cumsum(gaps * _f32(1000.0 / rate_hz, dev), dim=-1)
+        # each task's time is the rho-mixture of two i.i.d. draws
+        zz = unit_draws(gen, (T, jobs, 4 if has_extras else 2, K), dist, cv)
+        z = (rho_t * zz[..., 0, :] + (1 - rho_t) * zz[..., 1, :]) \
+            * _f32(means, dev) + _f32(offset, dev)
+        if has_extras:
+            z = z + (rho_t * zz[..., 2, :] + (1 - rho_t) * zz[..., 3, :]) \
+                * _f32(extras, dev)
+        if fail_prob == 0.0:
+            ok = torch.ones((T, jobs), dtype=torch.bool, device=dev)
+        else:
+            ok = ~torch.any(torch.rand((T, jobs, K), generator=gen,
+                                       device=dev) < fail_prob, dim=-1)
+        oh = torch.exp(_f32(oh_mu, dev) + _f32(oh_sigma, dev) * torch.randn(
+            (T, jobs, K + 1), generator=gen, device=dev))
+        oh0, ohd = oh[..., 0], oh[..., 1:]
+        # roots queue after the arrival overhead; staged tasks are inf
+        # until a fixed-point pass materializes their dependencies
+        ready0 = torch.where(root, (arrivals + oh0)[..., None], _INF)
+        z_flat = z.reshape(T, N)
+        wf0 = torch.zeros((T, W), device=dev)
+
+        def book(ready, full):
+            r_flat = ready.reshape(T, N)
+            order = torch.argsort(r_flat, dim=-1, stable=True)
+            r_s = torch.gather(r_flat, -1, order)
+            z_s = torch.gather(z_flat, -1, order)
+
+            def unsort(v):
+                return torch.empty_like(v).scatter_(-1, order, v).reshape(
+                    T, jobs, K)
+            if not full:
+                fins, = stock_booking_fins(wf0, r_s, z_s, block=block,
+                                           backend=backend, scan=scan,
+                                           summary_backend=summary_backend)
+                return unsort(fins), None, None
+            fins, sts, wks = blocked_bestfit_booking(
+                wf0, r_s, z_s, block=block, full=True, backend=backend,
+                scan=scan, summary_backend=summary_backend)
+            return unsort(fins), unsort(sts), unsort(wks)
+
+        def refresh(fin):
+            # stage hops (storage round-trip + control-plane draw) elapse
+            # BEFORE a worker is occupied
+            dmax = torch.where(dep_mask, fin[..., None, :],
+                               float("-inf")).amax(dim=-1)
+            return torch.where(root, ready0,
+                               dmax + _f32(stage_oh, dev) + ohd)
+
+        ready = ready0
+        for p in range(passes):
+            fin, start, wkr = book(ready, trace and p + 1 == passes)
+            if has_deps and p + 1 < passes:
+                ready = refresh(fin)
+        resp = fin.amax(dim=-1) - arrivals
+        if trace:
+            return resp, ok, (arrivals, ready, start, fin, wkr)
+        return resp, ok
+
+    return trial
+
+
+# --------------------------------------------------------------------------
+# public entry point
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QueueResult:
+    response_ms: torch.Tensor    # (trials, jobs), on the engine's device
+    ok: torch.Tensor             # (trials, jobs) bool
+    raptor: bool
+
+    @property
+    def jobs(self) -> int:
+        return int(self.response_ms.numel())
+
+    def fail_rate(self) -> float:
+        return float(1.0 - self.ok.float().mean())
+
+    def summary(self) -> dict:
+        """Delay summary conditioned on SUCCESS (a failed job's "response"
+        is its failure-detection time), with the failure accounting
+        alongside: ``n`` counts the successful jobs summarized."""
+        ok = self.ok.reshape(-1)
+        resp = self.response_ms.reshape(-1)[ok]
+        if resp.numel():
+            s = {k: (int(v) if k == "n" else float(v))
+                 for k, v in summarize_batch(resp).items()}
+        else:
+            nan = float("nan")
+            s = dict(mean=nan, median=nan, p90=nan, p99=nan, scv=nan, n=0)
+        s["fail_rate"] = self.fail_rate()
+        s["n_failed"] = int(ok.numel() - int(ok.sum()))
+        return s
+
+
+class QueueFlightSim:
+    """Closed-loop batched Monte-Carlo of one (workload, deployment) pair.
+
+    One *trial* is a whole replication of the queue: ``jobs`` Poisson
+    arrivals contending for ``num_workers`` workers spread over
+    ``num_azs`` AZs, starting empty.  Runs on the CUDA card unless
+    ``device`` says otherwise; without a card and without ``device`` it
+    raises.
+    """
+
+    def __init__(self, wl: QueueWorkload, *, num_workers: int = 15,
+                 num_azs: int = 3, flight: int = None, rho: float = 0.95,
+                 load: str = "medium", arrival_rate_hz: float = None,
+                 stream_latency_ms: float = 0.5, seed: int = 0,
+                 stock_extra_passes: int = 1, block: int = None,
+                 resolver: str = "auto", scan: str = "auto",
+                 booking_backend: str = "scan",
+                 summary_backend: str = "torch",
+                 faults: FaultProfile = None,
+                 recovery: RecoveryPolicy = None, device=None):
+        """``block``/``resolver``/``scan`` configure the blocked replay;
+        results are invariant to them (bitwise), so they are performance
+        knobs: ``None``/"auto" resolve per engine and device through
+        :func:`auto_config`, ``block=1`` forces the sequential oracle.
+        ``booking_backend`` ("scan" or "kernel") books the stock stream;
+        ``summary_backend`` ("torch" or "kernel") runs the log-depth
+        summary prefix.  ``stock_extra_passes``: extra stage-depth
+        fixed-point passes of the staged stock schedule.  ``faults``/
+        ``recovery`` default from the workload; fault mode is refused
+        (not ported yet)."""
+        self.device = resolve_device(device)
+        self.wl = wl
+        self.W = int(num_workers)
+        self.A = int(num_azs)
+        self.flight = int(flight if flight is not None else wl.flight)
+        if self.flight > self.W:
+            raise ValueError(
+                f"flight={self.flight} needs distinct workers but the "
+                f"deployment has only num_workers={self.W}")
+        if booking_backend not in BOOKING_BACKENDS:
+            raise ValueError(f"unknown booking backend {booking_backend!r}; "
+                             f"expected one of {BOOKING_BACKENDS}")
+        if summary_backend not in SUMMARY_BACKENDS:
+            raise ValueError(f"unknown summary backend {summary_backend!r}; "
+                             f"expected one of {SUMMARY_BACKENDS}")
+        self.faults = faults if faults is not None else wl.faults
+        self.recovery = (recovery if recovery is not None
+                         else (wl.recovery if wl.recovery is not None
+                               else NO_RECOVERY))
+        _raptor_mode(wl.fail_prob, self.faults, self.recovery)
+        self.rho = float(rho)
+        self.load = load
+        self.slat = float(stream_latency_ms)
+        self.seed = int(seed)
+        self.rate_hz = float(
+            arrival_rate_hz if arrival_rate_hz is not None
+            else _rate_for_load(wl.work_est_ws, self.W, load))
+        self.utilization = self.rate_hz * wl.work_est_ws / self.W
+        self._block = None if block is None else int(block)
+        self.resolver = str(resolver)
+        self.scan = str(scan)
+        self.booking_backend = str(booking_backend)
+        self.summary_backend = str(summary_backend)
+        self.oh_mu, self.oh_sigma = lognormal_params(
+            *OverheadModel.TABLE[(self.A > 1, load)])
+        self._sgraph = wl.stock_graph()
+        self._smeans = np.asarray(self._sgraph.means, dtype=np.float32)
+        self._sextras = np.asarray(wl.stock_extras(), dtype=np.float32)
+        # fixed-point pass budget for the task-FCFS stock replay: depth+1
+        # passes materialize every ready time, extras refine the estimates
+        sdepth = self._sgraph.stage_depth()
+        self._spasses = (1 if sdepth == 0
+                         else sdepth + 1 + int(stock_extra_passes))
+
+    def engine_config(self, engine: str) -> Tuple[int, str, str]:
+        """Resolved (block, resolver, scan) for ``engine`` ("raptor"/
+        "stock"): explicit constructor knobs win, the rest comes from
+        :func:`auto_config`."""
+        blk, res, sc = auto_config(engine, self.scan, self.device)
+        if self._block is not None:
+            blk = self._block
+        if self.resolver != "auto":
+            res = self.resolver
+        return blk, res, sc
+
+    def _raptor_fn(self, jobs: int, trace: bool = False):
+        blk, res, sc = self.engine_config("raptor")
+        return _raptor_trial_fn(
+            int(jobs), self.W, self.A, self.flight, self.wl.graph,
+            self.wl.dist, self.wl.fail_prob, blk, res, sc,
+            self.summary_backend, trace, self.device)
+
+    def _stock_fn(self, jobs: int, trace: bool = False):
+        blk, _, sc = self.engine_config("stock")
+        return _stock_trial_fn(
+            int(jobs), self.W, self._sgraph, self.wl.dist,
+            self.wl.fail_prob, self._spasses, bool(self._sextras.any()),
+            blk, self.booking_backend, sc, self.summary_backend, trace,
+            self.device)
+
+    def _raptor_args(self):
+        wl = self.wl
+        return (self.rate_hz, self.rho, wl.task_means, wl.offset_ms, wl.cv,
+                wl.raptor_stage_ms, self.slat, self.oh_mu, self.oh_sigma)
+
+    def _stock_args(self):
+        wl = self.wl
+        return (self.rate_hz, self.rho, self._smeans, self._sextras,
+                wl.offset_ms, wl.cv, wl.stock_stage_ms, self.oh_mu,
+                self.oh_sigma)
+
+    def _gen(self, raptor: bool) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed * 2 + (1 if raptor else 0))
+        return gen
+
+    def run(self, jobs: int = 1024, trials: int = 16, *,
+            raptor: bool = True) -> QueueResult:
+        if raptor:
+            resp, ok = self._raptor_fn(jobs)(self._gen(True), int(trials),
+                                             *self._raptor_args())
+        else:
+            resp, ok = self._stock_fn(jobs)(self._gen(False), int(trials),
+                                            *self._stock_args())
+        return QueueResult(resp, ok, raptor)
+
+    def run_pair(self, jobs: int = 1024, trials: int = 16) -> Dict[str, dict]:
+        stock = self.run(jobs, trials, raptor=False)
+        rap = self.run(jobs, trials, raptor=True)
+        out = {"stock": stock.summary(), "raptor": rap.summary()}
+        out["mean_ratio"] = out["raptor"]["mean"] / out["stock"]["mean"]
+        return out
+
+    def trace_run(self, jobs: int = 256, trials: int = 4, *,
+                  raptor: bool = True) -> Dict[str, np.ndarray]:
+        """Replay with the booking trace exposed (host numpy arrays).
+
+        Stock: per-(trial, job, task) ``ready`` (the value the final
+        scheduling pass honored), ``start``, ``fin``, ``worker``.
+        Raptor: per-(trial, job, member) ``dispatch``/``worker``/
+        ``release``.  Same seeds as :meth:`run`, so the traced replay IS
+        the measured one.
+        """
+        def host(x):
+            return x.cpu().numpy()
+        if raptor:
+            resp, ok, (arr, disp, widx, rel) = self._raptor_fn(
+                jobs, trace=True)(self._gen(True), int(trials),
+                                  *self._raptor_args())
+            return {"response": host(resp), "ok": host(ok),
+                    "arrival": host(arr), "dispatch": host(disp),
+                    "worker": host(widx), "release": host(rel)}
+        resp, ok, (arr, ready, start, fin, wkr) = self._stock_fn(
+            jobs, trace=True)(self._gen(False), int(trials),
+                              *self._stock_args())
+        return {"response": host(resp), "ok": host(ok),
+                "arrival": host(arr), "ready": host(ready),
+                "start": host(start), "fin": host(fin),
+                "worker": host(wkr)}

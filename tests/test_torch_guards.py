@@ -1,0 +1,81 @@
+"""Boundaries of the port: it stands alone, and it never falls back to
+the CPU on its own.
+
+* A fresh interpreter imports every ``repro_torch`` module and must end
+  with neither ``jax`` nor the reference package ``repro`` loaded.
+* Entry points default to the CUDA card: with no card visible and no
+  ``device``, they raise instead of quietly running on the CPU.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_port_imports_neither_jax_nor_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 15 else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch._device import resolve_device
+    from repro_torch.launch import serve
+    from repro_torch.sim.vector_queue import QueueFlightSim, keygen_queue
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QueueFlightSim(keygen_queue())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QueueFlightSim(keygen_queue(), device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--jobs", "8"])
+    assert QueueFlightSim(keygen_queue(), device="cpu").device.type == "cpu"
+
+
+def test_launcher_runs_on_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--device", "cpu", "--jobs", "48", "--microbatch",
+                       "16", "--arrival", "mmpp", "--scan", "logdepth",
+                       "--summary-backend", "kernel"]) == 0
+    out = capsys.readouterr().out
+    assert "sustained" in out and "cpu" in out
+
+
+def test_summaries_match_numpy():
+    """``summarize_batch``'s quantiles interpolate linearly like numpy;
+    the masked form conditions on ``ok``."""
+    from repro_torch.core.analytics import (summarize_batch,
+                                            summarize_masked_batch)
+    rng = np.random.default_rng(0)
+    a = rng.lognormal(size=1001).astype(np.float32)
+    ok = rng.uniform(size=1001) < 0.9
+    s = summarize_batch(torch.as_tensor(a))
+    for k, q in (("median", 50), ("p90", 90), ("p99", 99)):
+        assert float(s[k]) == pytest.approx(np.percentile(a, q), rel=1e-5)
+    m = summarize_masked_batch(torch.as_tensor(a), torch.as_tensor(ok))
+    for k, q in (("median", 50), ("p99", 99)):
+        assert float(m[k]) == pytest.approx(np.percentile(a[ok], q),
+                                            rel=1e-5)
+    assert float(m["mean"]) == pytest.approx(a[ok].mean(), rel=1e-5)
+    assert int(m["n"]) == ok.sum()
