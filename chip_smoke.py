@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (``src/repro_torch``) once at full width —
-the paper's HA deployment (15 workers over 3 AZs), keygen at load
-``high``, fig6's 1,800 s stream (10,658 jobs per trial) and 32 trials —
-after building its two hand-written CUDA kernels from the sources in the
-checkout:
+Drives the port's two paths (``src/repro_torch``) once each at full
+width, after building the four hand-written CUDA kernels from the sources
+in the checkout.  The scheduler path: the paper's HA deployment (15
+workers over 3 AZs), keygen at load ``high``, fig6's 1,800 s stream
+(10,658 jobs per trial) and 32 trials.  The LM serving path: gemma2-9b at
+full width (42 layers, d_model 3584, 16 q / 8 kv heads of 256, vocab
+256,000, bf16, random weights from seed 0) serving 3 batches of 2 prompts
+of 4,608 tokens with 32 decode steps each, then one Raptor flight of 2.
 
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build both kernels (one nvcc per source, in parallel), timed;
+2. build all four kernels (one nvcc per source, in parallel), timed;
 3. ``queue_booking`` against its plain PyTorch version, bitwise, at the
    engine's stock shape and the reference tests' shapes, timed;
 4. ``maxplus_scan`` against its plain version, bitwise, on integer tapes
@@ -21,9 +24,26 @@ checkout:
    launch counts must rise; the ``run_pair`` summary;
 6. service: ``SchedulerService`` on the kernel route under MMPP arrivals,
    with the streaming ``oracle_check`` bitwise;
-7. one JSON line per run listing each kernel (launches on the engine
-   path, error against the plain version, times, bound);
-8. the last line: ``{"ok": true, "device": {...}}``.
+7. ``flash_attention`` against its plain version at the prefill's shapes
+   (bf16, B=2, 16 q / 8 kv heads, S=4608, D=256, cap 50; window 4096 and
+   0) within the bf16 bar of ``TOL``, and on an f32 reference case within
+   2e-5, timed beside ``F.scaled_dot_product_attention`` at cap 0;
+8. ``decode_attention`` against its plain version at the decode's shapes
+   (bf16, B=2, C=4648 and 4096, the model's ring positions and random
+   holes) within the bf16 bar, timed beside SDPA with a mask at cap 0;
+9. LM serve: ``ServingEngine.serve`` and one ``generate_flight`` (tokens
+   equal to ``generate``'s) on the card, with exactly 42 flash_attention
+   launches per prefill and 42 decode_attention launches per decode step;
+   then the wiring at real shapes (prefill and 4 teacher-forced decode
+   steps): in bf16 every kernel call against its plain version on the
+   model's own activations within the bf16 bar, and the logits no further
+   (rms) from the plain attention's than bf16 itself puts them from
+   float32;
+   with the same weights in float32, logits within 1e-3 x max |logit| of
+   the plain attention's;
+10. one JSON line listing each kernel (launches on its path, error
+   against the plain version, times, bound, library time);
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.  A copy
@@ -31,12 +51,15 @@ of the results goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -47,9 +70,21 @@ TRIALS = 32
 JOBS = 10658                 # 1,800 s at 5.92 Hz
 LOGDEPTH_NB = 16             # log-depth route: 16 blocks of the stream
 SERVICE_JOBS, SERVICE_MB = 4096, 128
+# the LM serving path: gemma2-9b, 3 batches of 2 prompts, 32 decode steps
+ARCH = "gemma2-9b"
+LM_BATCH, PROMPT, DECODE_STEPS, LM_BATCHES = 2, 4608, 32, 3
+MAX_LEN = PROMPT + DECODE_STEPS + 8
+WIRING_STEPS = 4
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
+# kernel against plain: |got - want| <= atol + rtol |want| at every element
+# and never above ``cap``, the reference kernel tests' bar.  The plain
+# versions compute in float32 and round once, so a bf16 element may be off
+# by about two bf16 ulps of itself (rtol) plus a floor for outputs near 0
+# (atol: a few percent of a typical output at the path's lengths).
+TOL = {"float32": (2e-5, 0.0, 2e-5), "bfloat16": (1e-3, 1.6e-2, 2e-2)}
 
 
 def say(msg: str) -> None:
@@ -110,6 +145,34 @@ def compare(got, want) -> float:
     return err
 
 
+def close(got, want, name: str) -> tuple:
+    """Raise unless ``got`` is finite and every element is within the
+    ``TOL`` bar of ``want``'s dtype; return (the largest absolute error,
+    the largest share of its element's bar)."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: shape/dtype {got.shape}/{got.dtype} "
+                             f"vs {want.shape}/{want.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: kernel output is not finite")
+    atol, rtol, cap = TOL[str(want.dtype).removeprefix("torch.")]
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max())
+    share = float((diff / (atol + rtol * want.double().abs())).max())
+    if not (share <= 1.0 and err <= cap):
+        raise AssertionError(
+            f"{name}: kernel disagrees with its plain version: max abs err "
+            f"{err} (bar {cap}), {share:.3f} of atol {atol} + rtol {rtol} "
+            f"x |plain|")
+    return err, share
+
+
+def causal_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal prefill of ``s`` tokens attends to."""
+    w = window or s
+    return sum(min(i + 1, w) for i in range(s))
+
+
 def booking_stream(T, N, W, util, dead_tail, seed, dev):
     """Ready-sorted booking streams like the stock engine's: Poisson-ish
     ready times at utilisation ``util``, exponential service."""
@@ -151,12 +214,21 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_plain, gqa_decode)
+    from repro_torch.kernels.flash_attention.ops import attention_plain, mha
     from repro_torch.kernels.maxplus_scan.ops import (
         maxplus_entries, maxplus_entries_plain)
     from repro_torch.kernels.queue_booking.ops import (book_stream,
                                                        book_stream_plain)
-    from repro_torch.serving.engine import SchedulerService
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import (SchedulerService, ServeConfig,
+                                            ServingEngine, demo_requests)
+    from repro_torch.serving.step import greedy_sample
     from repro_torch.sim.events import MMPPArrivals
     from repro_torch.sim.streaming import oracle_check
     from repro_torch.sim.vector_queue import QueueFlightSim, keygen_queue
@@ -179,7 +251,8 @@ def main() -> int:
         say(f"phase 2 build {stem}: {paths[stem].name} "
             f"({_build.build_seconds.get(stem, 0.0):.1f} s) "
             f"{' | '.join(regs)}")
-    say(f"phase 2 build: both kernels in {build_s:.1f} s wall [{card}]")
+    say(f"phase 2 build: {len(paths)} kernels in {build_s:.1f} s wall "
+        f"[{card}]")
     results["build_s"] = build_s
 
     # ---- 3. queue_booking vs plain -------------------------------------
@@ -334,7 +407,292 @@ def main() -> int:
         f"[{card}]")
     results["service"] = rep.summary()
 
-    # ---- 7. kernels line ---------------------------------------------------
+    # ---- 7. flash_attention vs plain -----------------------------------
+    cfg = get_config(ARCH)
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    scale = tfm._attn_scale(cfg)
+    cap = cfg.attn_logit_softcap
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf16 = torch.bfloat16
+
+    def heads(b, s, h, dtype):
+        """[B, H, S, D] views of a [B, S, H, D] tensor, the model's
+        layout, as the prefill hands them to the kernel."""
+        x = torch.randn((b, s, h, hd), generator=gen, device=dev)
+        return x.to(dtype).transpose(1, 2)
+
+    q = heads(LM_BATCH, PROMPT, hq, bf16)
+    k = heads(LM_BATCH, PROMPT, hkv, bf16)
+    v = heads(LM_BATCH, PROMPT, hkv, bf16)
+    k3 = {"err": 0.0, "share": 0.0, "rms": {}, "ms": {}, "plain_ms": {},
+          "bound_ms": {}}
+    for window in (cfg.window_size, 0):
+        def kern(window=window):
+            return mha(q, k, v, window=window, logit_cap=cap, scale=scale)
+
+        def plain(window=window):
+            return attention_plain(q, k, v, window=window, logit_cap=cap,
+                                   scale=scale)
+        want = plain()
+        err, share = close(kern(), want, f"flash_attention window {window}")
+        k3["err"], k3["share"] = max(k3["err"], err), max(k3["share"], share)
+        k3["rms"][window] = float(want.float().square().mean().sqrt())
+        del want
+        k3["ms"][window] = time_ms(kern, reps=5)
+        k3["plain_ms"][window] = time_ms(plain, reps=2)
+        pairs = LM_BATCH * hq * causal_pairs(PROMPT, window)
+        k3["bound_ms"][window] = 1e3 * max(
+            4 * hd * pairs / BF16_OPS_PER_S,
+            2 * LM_BATCH * PROMPT * (2 * hq + 2 * hkv) * hd / HBM_BYTES_PER_S)
+    b, h32, g32, s32, d32 = 2, 4, 2, 256, 64   # test_kernels_flash CASES[1]
+    q32 = torch.randn((b, h32, s32, d32), generator=gen, device=dev)
+    k32 = torch.randn((b, g32, s32, d32), generator=gen, device=dev)
+    v32 = torch.randn((b, g32, s32, d32), generator=gen, device=dev)
+    k3_err32, _ = close(mha(q32, k32, v32), attention_plain(q32, k32, v32),
+                        "flash_attention float32")
+    # like for like with SDPA: no logit cap (SDPA has none), no window
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    k3_cap0_ms = time_ms(lambda: mha(q, k, v, scale=scale), reps=5)
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True, scale=scale, enable_gqa=True), reps=5)
+    k3_ms = sum(k3["ms"].values()) / 2
+    k3_plain_ms = sum(k3["plain_ms"].values()) / 2
+    k3_bound = sum(k3["bound_ms"].values()) / 2
+    say(f"phase 7 flash_attention (bf16, B={LM_BATCH}, {hq}/{hkv} heads, "
+        f"S={PROMPT}, D={hd}, cap {cap}): max abs err {k3['err']:.3g}, "
+        f"{k3['share']:.3f} of the bf16 bar at worst (rms |plain| "
+        + ", ".join(f"window {w}: {r:.4f}" for w, r in k3["rms"].items())
+        + f"; f32 case {k3_err32:.3g}); kernel ms "
+        + ", ".join(f"window {w}: {t:.4f}" for w, t in k3["ms"].items())
+        + "; plain ms "
+        + ", ".join(f"window {w}: {t:.3f}" for w, t in
+                    k3["plain_ms"].items())
+        + "; bound ms (operations) "
+        + ", ".join(f"window {w}: {t:.4f}" for w, t in
+                    k3["bound_ms"].items())
+        + f"; at cap 0, window 0: kernel {k3_cap0_ms:.4f} ms, SDPA "
+        f"{sdpa_ms:.4f} ms [{card}]")
+    del q, k, v, qc, kc, vc
+
+    # ---- 8. decode_attention vs plain ----------------------------------
+    idx = PROMPT + DECODE_STEPS - 12           # a step late in the decode
+    k4 = {"err": 0.0, "share": 0.0, "rms": 0.0, "ms": {}, "plain_ms": {},
+          "bound_ms": {}, "cap0_ms": {}, "sdpa_ms": {}}
+    caches = {MAX_LEN: 0, min(cfg.window_size, MAX_LEN): cfg.window_size}
+    qd = torch.randn((LM_BATCH, hq, hd), generator=gen, device=dev).to(bf16)
+    for c_len, window in caches.items():
+        kd = torch.randn((LM_BATCH, c_len, hkv, hd), generator=gen,
+                         device=dev).to(bf16)
+        vd = torch.randn((LM_BATCH, c_len, hkv, hd), generator=gen,
+                         device=dev).to(bf16)
+        pos = tfm.decode_positions(idx, c_len, window, dev)
+        holes = torch.where(torch.rand(c_len, generator=gen, device=dev)
+                            < 0.3, -1, pos).to(torch.int32)
+        for p_ in (pos, holes):
+            want = decode_attention_plain(qd, kd, vd, p_, scale=scale,
+                                          logit_cap=cap)
+            err, share = close(gqa_decode(qd, kd, vd, p_, scale=scale,
+                                          logit_cap=cap), want,
+                               f"decode_attention C={c_len}")
+            k4["err"], k4["share"] = (max(k4["err"], err),
+                                      max(k4["share"], share))
+            k4["rms"] = max(k4["rms"],
+                            float(want.float().square().mean().sqrt()))
+        k4["ms"][c_len] = time_ms(lambda: gqa_decode(
+            qd, kd, vd, pos, scale=scale, logit_cap=cap), reps=50)
+        k4["cap0_ms"][c_len] = time_ms(lambda: gqa_decode(
+            qd, kd, vd, pos, scale=scale), reps=50)
+        k4["plain_ms"][c_len] = time_ms(lambda: decode_attention_plain(
+            qd, kd, vd, pos, scale=scale, logit_cap=cap), reps=10)
+        nbytes = (2 * kd.numel() + 2 * qd.numel()) * 2 + 4 * c_len
+        k4["bound_ms"][c_len] = 1e3 * nbytes / HBM_BYTES_PER_S
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (kd, vd))
+        mask = (pos >= 0)[None, None, None, :]
+        k4["sdpa_ms"][c_len] = time_ms(lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kt, vt, attn_mask=mask, scale=scale,
+            enable_gqa=True), reps=50)
+    k4_ms = sum(k4["ms"].values()) / 2
+    k4_plain_ms = sum(k4["plain_ms"].values()) / 2
+    k4_bound = sum(k4["bound_ms"].values()) / 2
+    k4_sdpa_ms = sum(k4["sdpa_ms"].values()) / 2
+    k4_cap0_ms = sum(k4["cap0_ms"].values()) / 2
+    say(f"phase 8 decode_attention (bf16, B={LM_BATCH}, {hq}/{hkv} heads, "
+        f"D={hd}, index {idx}): max abs err {k4['err']:.3g}, "
+        f"{k4['share']:.3f} of the bf16 bar at worst (rms |plain| up to "
+        f"{k4['rms']:.4f}); "
+        + "; ".join(f"C={c}: kernel {k4['ms'][c]:.4f} ms, plain "
+                    f"{k4['plain_ms'][c]:.4f} ms, bound (bytes) "
+                    f"{k4['bound_ms'][c]:.4f} ms, at cap 0: kernel "
+                    f"{k4['cap0_ms'][c]:.4f} ms, SDPA (mask) "
+                    f"{k4['sdpa_ms'][c]:.4f} ms" for c in k4["ms"])
+        + f" [{card}]")
+    del qd, kd, vd, kt, vt
+    results["attention_kernels"] = {"flash_attention": k3,
+                                    "decode_attention": k4,
+                                    "flash_attention_cap0_ms": k3_cap0_ms,
+                                    "sdpa_prefill_ms": sdpa_ms}
+
+    # ---- 9. LM serve: gemma2-9b at full width ---------------------------
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    say(f"phase 9 {ARCH}: {n_params:,} parameters "
+        f"({torch.cuda.memory_allocated() / 1e9:.1f} GB on the card) drawn "
+        f"in {time.perf_counter() - t0:.1f} s")
+    batches = [demo_requests(cfg, LM_BATCH, PROMPT, seed=i, device=dev)
+               for i in range(LM_BATCHES)]
+    eng = ServingEngine(cfg, params, ServeConfig(
+        max_len=MAX_LEN, decode_steps=DECODE_STEPS), device=dev)
+    mha.launches = 0
+    gqa_decode.launches = 0
+    stats = eng.serve(batches)
+    lm_launches = {"flash_attention": mha.launches,
+                   "decode_attention": gqa_decode.launches}
+    prefills = 2 + LM_BATCHES                 # warmup runs two
+    steps = 2 + LM_BATCHES * DECODE_STEPS     # and one step after each
+    want = {"flash_attention": cfg.num_layers * prefills,
+            "decode_attention": cfg.num_layers * steps}
+    if lm_launches != want:
+        raise AssertionError(f"LM serve launched {lm_launches}, expected "
+                             f"{want} ({cfg.num_layers} per prefill and per "
+                             f"decode step)")
+    summ = stats.summary()
+    tok_s = LM_BATCH / summ["decode_step_s"]
+    say(f"phase 9 serve: {summ['requests']} requests (B={LM_BATCH}, prompt "
+        f"{PROMPT}, {DECODE_STEPS} decode steps, max_len {MAX_LEN}): "
+        f"prefill {summ['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{summ['decode_step_s'] * 1e3:.3f} ms/step, {tok_s:.1f} decode "
+        f"tokens/s, request p50 {summ['p50_s'] * 1e3:.1f} ms, p99 "
+        f"{summ['p99_s'] * 1e3:.1f} ms; first call {summ['cold_s']:.2f} s, "
+        f"warm {summ['warm_s']:.2f} s; launches {lm_launches} "
+        f"({prefills} prefills, {steps} decode steps) [{card}]")
+    flight_eng = ServingEngine(cfg, params, ServeConfig(
+        max_len=MAX_LEN, decode_steps=DECODE_STEPS, flight_size=2),
+        device=dev)
+    flight_eng.warmup(batches[0])
+    n3, n4 = mha.launches, gqa_decode.launches
+    flown = flight_eng.generate_flight(batches[0])
+    plain_run = eng.generate(batches[0])
+    if not (flown.tokens == plain_run.tokens).all():
+        raise AssertionError("the flight's tokens differ from generate's")
+    if flown.tokens.shape != (LM_BATCH, DECODE_STEPS):
+        raise AssertionError(f"flight tokens {flown.tokens.shape}")
+    frep = flown.flight_report
+    say(f"phase 9 flight of 2: {flown.latency_s * 1e3:.1f} ms, tokens equal "
+        f"generate's ({plain_run.latency_s * 1e3:.1f} ms); executed "
+        f"{[e.executed for e in frep.executors]}, pre-empted "
+        f"{[e.preempted for e in frep.executors]}; launches "
+        f"flash_attention {mha.launches - n3}, decode_attention "
+        f"{gqa_decode.launches - n4} (generate's included) [{card}]")
+
+    # the wiring at real shapes: the same weights and tokens with each
+    # attention entry of the model swapped for another function
+    batch = batches[0]
+    forced = torch.as_tensor(plain_run.tokens[:, :WIRING_STEPS],
+                             device=dev)
+    shadow = {"flash_attention": [0, 0.0, 0.0],
+              "decode_attention": [0, 0.0, 0.0]}   # calls, max err, share
+
+    def shadowed(name, kernel, plain):
+        """``kernel``, each call also held to ``plain`` on its inputs."""
+        def run(*args, **kw):
+            got = kernel(*args, **kw)
+            err, share = close(got, plain(*args, **kw), f"model {name}")
+            rec = shadow[name]
+            rec[:] = rec[0] + 1, max(rec[1], err), max(rec[2], share)
+            return got
+        return run
+
+    def logits_with(cfg_, prefill_attn=None, decode_attn=None):
+        """Prefill and WIRING_STEPS teacher-forced decode steps, with
+        ``layers.mha`` and ``tfm.gqa_decode`` swapped where given: the
+        logits, float32 [WIRING_STEPS + 1, B, V]."""
+        with contextlib.ExitStack() as swaps:
+            if prefill_attn is not None:
+                swaps.enter_context(mock.patch.object(layers, "mha",
+                                                      prefill_attn))
+            if decode_attn is not None:
+                swaps.enter_context(mock.patch.object(tfm, "gqa_decode",
+                                                      decode_attn))
+            logits, cache = tfm.prefill(params, cfg_, batch, MAX_LEN)
+            outs = [logits.float()]
+            for i in range(WIRING_STEPS):
+                logits, cache = tfm.decode_step(params, cfg_, cache,
+                                                forced[:, i:i + 1])
+                outs.append(logits.float())
+        del cache
+        out = torch.stack(outs)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("LM logits are not finite")
+        return out
+
+    def gap(a, b):
+        """(max, rms) of |a - b|, and the greedy tokens' agreement."""
+        d = (a - b).abs()
+        agree = float((greedy_sample(a) == greedy_sample(b)).float().mean())
+        return float(d.max()), float(d.square().mean().sqrt()), agree
+
+    kern16 = logits_with(
+        cfg, shadowed("flash_attention", mha, attention_plain),
+        shadowed("decode_attention", gqa_decode, decode_attention_plain))
+    want_calls = {"flash_attention": cfg.num_layers,
+                  "decode_attention": cfg.num_layers * WIRING_STEPS}
+    calls = {name: rec[0] for name, rec in shadow.items()}
+    if calls != want_calls:
+        raise AssertionError(f"the wiring run made {calls} attention "
+                             f"calls, expected {want_calls}")
+    say("phase 9 wiring bf16, every kernel call against its plain version "
+        "on the model's activations: "
+        + "; ".join(f"{name} {rec[0]} calls, max abs err {rec[1]:.4g}, "
+                    f"{rec[2]:.3f} of the bf16 bar at worst"
+                    for name, rec in shadow.items()) + f" [{card}]")
+    plain16 = logits_with(cfg, attention_plain, decode_attention_plain)
+    # the same weights in float32 (37 GB): the kernels agree with the plain
+    # versions to float32 rounding there, and the plain attention's
+    # float32 logits measure how far bf16 rounding alone moves them
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    for w in params.parameters():
+        w.data = w.data.float()
+    kern32 = logits_with(cfg32)
+    plain32 = logits_with(cfg32, attention_plain, decode_attention_plain)
+    err16, rms16, agree16 = gap(kern16, plain16)
+    noise16, noise_rms16, _ = gap(plain16, plain32)
+    err32, rms32, agree32 = gap(kern32, plain32)
+    top32 = float(plain32.abs().max())
+    say(f"phase 9 wiring (prefill + {WIRING_STEPS} teacher-forced steps, "
+        f"kernels vs plain attention): bf16 max |dlogit| {err16:.4g} (rms "
+        f"{rms16:.4g}), greedy tokens agree {agree16:.3f}; bf16 vs float32, "
+        f"both plain: max {noise16:.4g} (rms {noise_rms16:.4g}); float32 "
+        f"max |dlogit| {err32:.4g} (rms {rms32:.4g}) against 1e-3 x max "
+        f"|logit| = {1e-3 * top32:.4g}, greedy tokens agree {agree32:.3f} "
+        f"[{card}]")
+    # rms over all B x V logits of every step, not the max: the max is one
+    # extreme draw of the rounding, the rms a stable measure of it
+    if not rms16 <= noise_rms16:
+        raise AssertionError(
+            f"bf16: the kernels move the logits further from the plain "
+            f"attention's (rms {rms16}) than bf16 rounding moves them from "
+            f"float32 (rms {noise_rms16})")
+    if not err32 <= 1e-3 * top32:
+        raise AssertionError(f"float32: kernel and plain attention "
+                             f"disagree: max |dlogit| {err32} > "
+                             f"{1e-3 * top32}")
+    results["lm_serve"] = dict(summ, decode_tokens_per_s=tok_s,
+                               launches=lm_launches, params=n_params,
+                               flight_s=flown.latency_s,
+                               wiring_calls=shadow,
+                               wiring_bf16_max_abs=err16,
+                               wiring_bf16_rms=rms16,
+                               bf16_vs_f32_max_abs=noise16,
+                               bf16_vs_f32_rms=noise_rms16,
+                               greedy_agreement=agree16,
+                               wiring_f32_max_abs=err32,
+                               greedy_agreement_f32=agree32)
+    del params, eng, flight_eng
+    torch.cuda.empty_cache()
+
+    # ---- 10. kernels line --------------------------------------------------
     kernels = [
         {"name": "queue_booking", "route": "cuda",
          "source": "src/repro_torch/csrc/queue_booking.cu",
@@ -348,6 +706,26 @@ def main() -> int:
          "launches": launches["maxplus_scan"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": cummax_ms},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
+         "launches": lm_launches["flash_attention"],
+         "max_abs_err": k3["err"], "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound, "bound_by": "operations",
+         "library_ms": sdpa_ms, "ms_like_library": k3_cap0_ms,
+         "library_call": "scaled_dot_product_attention, causal, GQA; "
+                         "it has no logit cap, so it and ms_like_library "
+                         "are at cap 0, window 0"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:67",
+         "launches": lm_launches["decode_attention"],
+         "max_abs_err": k4["err"], "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_bound, "bound_by": "bytes",
+         "library_ms": k4_sdpa_ms, "ms_like_library": k4_cap0_ms,
+         "library_call": "scaled_dot_product_attention with a kv_pos "
+                         "mask, GQA; it has no logit cap, so it and "
+                         "ms_like_library are at cap 0"},
     ]
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

@@ -1,0 +1,20 @@
+"""phi3-mini-3.8b — dense. 32L d_model=3072 32H (GQA kv=32) d_ff=8192
+vocab=32064, RoPE + SwiGLU. [arXiv:2404.14219]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-mini-3.8b",
+    family="dense",
+    num_layers=32,
+    d_model=3072,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=8192,
+    vocab_size=32064,
+    head_dim=96,
+    mlp_variant="swiglu",
+    rope_theta=10000.0,
+    attn_pattern="global",
+    tie_embeddings=False,
+)

@@ -1,0 +1,160 @@
+"""Single-token GQA attention over a (ring) KV cache: the CUDA kernel's
+wrapper and its plain PyTorch version.
+
+Replaces the Pallas kernel ``repro/kernels/decode_attention/kernel.py::
+decode_attention``.  q ``[B, Hq, D]``; k and v ``[B, C, Hkv, D]``, the
+model's cache layout; ``kv_pos [C]`` int32, where a slot with
+``kv_pos < 0`` is masked (``NEG_INF``, finite).  Query head ``h`` reads kv
+head ``h // (Hq // Hkv)``.  Per score: ``s = q.k * scale``, then
+``tanh(s / cap) * cap``, then the mask; softmax in float32.
+
+On this card the kernel is bound by the bytes of the cache it reads (see
+the note in ``csrc/decode_attention.cu``): one block per (batch, kv head,
+chunk of the cache) computes every query head of its group, and a second
+kernel merges the chunks.  :func:`gqa_decode` launches it for CUDA tensors
+and runs :func:`decode_attention_plain` only for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import threading
+
+import torch
+
+from repro_torch.kernels._build import library
+
+NEG_INF = -2.3819763e38
+HEAD_DIMS = (32, 64, 96, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: blocks the split aims at per SM
+BLOCKS_PER_SM = 2
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+
+
+def _lib():
+    lib = library("decode_attention")
+    lib.decode_attention_launch.argtypes = (
+        [_P] * 6 + [_I] * 8 + [_L] * 10 + [_F, _F, _P])
+    lib.decode_attention_launch.restype = _I
+    for fn in ("decode_attention_tile", "decode_attention_max_rep"):
+        getattr(lib, fn).restype = _I
+    return lib
+
+
+def decode_attention_plain(q, k, v, kv_pos, *, scale: float | None = None,
+                           logit_cap: float = 0.0):
+    """The plain PyTorch version (grouped GQA, materialised scores).
+    q: [B, Hq, D]; k, v: [B, C, Hkv, D]; kv_pos: [C] -> [B, Hq, D]."""
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    rep = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    qg = q.float().reshape(b, hkv, rep, d)
+    s = torch.einsum("bgrd,bcgd->bgrc", qg, k.float()) * scale
+    if logit_cap:
+        s = torch.tanh(s / logit_cap) * logit_cap
+    s = torch.where((kv_pos >= 0)[None, None, None, :], s,
+                    torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrc,bcgd->bgrd", p, v.float())
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _check(q, k, v, kv_pos):
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be [B, Hq, D] and k, v [B, C, Hkv, D], "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, hq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % k.shape[2]:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if kv_pos.shape != (k.shape[1],) or kv_pos.dtype != torch.int32:
+        raise ValueError(f"kv_pos must be int32 [C={k.shape[1]}], got "
+                         f"{kv_pos.dtype} {tuple(kv_pos.shape)}")
+    for name, x in (("k", k), ("v", v), ("kv_pos", kv_pos)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+    for name, x in (("k", k), ("v", v)):
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _split(dev, groups: int, tiles: int):
+    """(nsplit, tiles per split): enough chunks of the cache for about
+    ``BLOCKS_PER_SM`` blocks per SM, each chunk at least one tile."""
+    want = max(1, math.ceil(BLOCKS_PER_SM * _sm_count(dev) / groups))
+    per = math.ceil(tiles / min(tiles, want))
+    return math.ceil(tiles / per), per
+
+
+def gqa_decode(q, k, v, kv_pos, *, scale: float | None = None,
+               logit_cap: float = 0.0):
+    """One token's attention over the cache.
+
+    q: [B, Hq, D]; k, v: [B, C, Hkv, D] (D contiguous); kv_pos: [C]
+    int32.  CUDA tensors launch the kernel; CPU tensors run
+    :func:`decode_attention_plain`.  Returns [B, Hq, D].
+    """
+    _check(q, k, v, kv_pos)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, kv_pos, scale=scale,
+                                      logit_cap=logit_cap)
+    if q.device.type != "cuda":
+        raise ValueError(f"gqa_decode runs on cuda or cpu, not {q.device}")
+    lib = _lib()
+    b, hq, d = q.shape
+    c, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, not "
+                        f"{q.dtype}")
+    if d not in HEAD_DIMS or rep > lib.decode_attention_max_rep():
+        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS} and at "
+                         f"most {lib.decode_attention_max_rep()} query heads"
+                         f" per kv head; got D={d}, {rep}")
+    vec = 16 // q.element_size()
+    for name, x in (("k", k), ("v", v)):
+        if x.stride(3) != 1 or any(s % vec for s in x.stride()[:3]) \
+                or x.data_ptr() % 16:
+            raise ValueError(f"{name} needs a contiguous head dim, rows "
+                             f"16-byte aligned; strides {x.stride()}")
+    if q.stride(2) != 1:
+        raise ValueError(f"q needs a contiguous head dim, strides "
+                         f"{q.stride()}")
+    kv_pos = kv_pos.contiguous()
+    scale = d ** -0.5 if scale is None else scale
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0 or c == 0:
+        return out
+    tiles = math.ceil(c / lib.decode_attention_tile())
+    nsplit, per = _split(q.device, b * hkv, tiles)
+    ws = torch.empty(b * hkv * nsplit * rep * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
+        ws.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, hq, hkv, c, d,
+        nsplit, per, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        k.stride(2), v.stride(0), v.stride(1), v.stride(2), out.stride(0),
+        out.stride(1), float(scale), float(logit_cap or 0.0), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention launch failed: CUDA error "
+                           f"{err}")
+    with _count_lock:            # flight members launch from threads
+        gqa_decode.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+gqa_decode.launches = 0
+_count_lock = threading.Lock()

@@ -1,0 +1,139 @@
+"""Causal / sliding-window / logit-capped GQA attention: the CUDA
+kernel's wrapper and its plain PyTorch version.
+
+Replaces the Pallas kernel ``repro/kernels/flash_attention/kernel.py::
+flash_attention``.  Layout as there: q ``[B, Hq, Sq, D]``, k and v
+``[B, Hkv, Sk, D]``; query head ``h`` reads kv head ``h // (Hq // Hkv)``;
+query ``i`` sits at key position ``i + Sk - Sq``.  Per score: ``s = q.k *
+scale``, then ``tanh(s / cap) * cap``, then the causal and window masks
+(``NEG_INF``, finite), softmax in float32, output in the input dtype.
+
+On this card the kernel is bound by its operations (see the note in
+``csrc/flash_attention.cu``).  :func:`mha` launches it for CUDA tensors,
+reading q, k and v through their strides, so the model's ``[B, S, H, D]``
+tensors go in as ``transpose(1, 2)`` views without a copy; its output is
+a ``[B, Hq, Sq, D]`` view of a ``[B, Sq, Hq, D]`` buffer.  CPU tensors run
+:func:`attention_plain`.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from repro_torch.kernels._build import library
+
+NEG_INF = -2.3819763e38
+HEAD_DIMS = (32, 64, 96, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+
+
+def _lib():
+    lib = library("flash_attention")
+    lib.flash_attention_launch.argtypes = (
+        [_P] * 4 + [_I] * 7 + [_L] * 12 + [_F, _F, _I, _I, _P])
+    lib.flash_attention_launch.restype = _I
+    return lib
+
+
+def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                    logit_cap: float = 0.0, scale: float | None = None):
+    """The plain PyTorch version (materialised scores, grouped GQA).
+    q: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D] -> [B, Hq, Sq, D]."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    qg = q.float().reshape(b, hkv, rep, sq, d)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float()) * scale
+    if logit_cap:
+        s = torch.tanh(s / logit_cap) * logit_cap
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _check(q, k, v, causal):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be [B, Hq, Sq, D] and k, v [B, Hkv, Sk, "
+                         f"D], got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, hq, sq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if hq % k.shape[1]:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={k.shape[1]}")
+    if causal and sq > k.shape[2]:
+        raise ValueError(f"causal attention needs Sq <= Sk, got Sq={sq}, "
+                         f"Sk={k.shape[2]}")
+    for name, x in (("k", k), ("v", v)):
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+
+
+def mha(q, k, v, *, causal: bool = True, window: int = 0,
+        logit_cap: float = 0.0, scale: float | None = None):
+    """GQA attention with an online softmax.
+
+    q: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D], float32 or bfloat16, any
+    strides with D contiguous.  CUDA tensors launch the kernel (D in
+    ``HEAD_DIMS``); CPU tensors run :func:`attention_plain`.
+    """
+    _check(q, k, v, causal)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal=causal, window=window,
+                               logit_cap=logit_cap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha runs on cuda or cpu, not {q.device}")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, not "
+                        f"{q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {d}")
+    vec = 16 // q.element_size()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1 or any(s % vec for s in x.stride()[:3]) \
+                or x.data_ptr() % 16:
+            raise ValueError(f"{name} needs a contiguous head dim, rows "
+                             f"16-byte aligned; strides {x.stride()}")
+    scale = d ** -0.5 if scale is None else scale
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], float(scale), float(logit_cap or 0.0),
+        int(bool(causal)), int(window or 0), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error "
+                           f"{err}")
+    with _count_lock:            # flight members launch from threads
+        mha.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+mha.launches = 0
+_count_lock = threading.Lock()

@@ -50,41 +50,45 @@ def card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def profile(engine: str, jobs: int, trials: int, load: str,
-            name: str) -> dict:
-    """One run under ``torch.profiler``: the device's kernel time against
-    the host wall time, and the kernels that take most of it."""
+def trace(fn, name: str, label: str, top: int = 8) -> dict:
+    """``fn`` once under ``torch.profiler``: wall time, device busy time,
+    idle share, kernels launched and the top kernels by device time."""
     from torch.profiler import ProfilerActivity
-    sim = QueueFlightSim(keygen_queue(), load=load, seed=0, device="cuda")
-    raptor = engine == "raptor"
-    sim.run(jobs, trials, raptor=raptor)                     # warm
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.run(jobs, trials, raptor=raptor)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    busy_us = sum(e.self_device_time_total for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    launches = sum(e.count for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    top = sorted((e for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: -e.self_device_time_total)[:5]
-    out = dict(engine=engine, config=sim.engine_config(engine), jobs=jobs,
-               trials=trials, wall_s=wall, device_busy_s=busy_us / 1e6,
-               idle_share=1.0 - busy_us / 1e6 / wall, kernels=launches,
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in cuda)
+    out = dict(label=label, wall_s=wall, device_busy_s=busy_us / 1e6,
+               idle_share=1.0 - busy_us / 1e6 / wall,
+               kernels=sum(e.count for e in cuda),
                top=[(e.key, e.self_device_time_total / 1e6, e.count)
-                    for e in top])
-    print(f"profile {engine} {out['config']} jobs={jobs}: wall "
-          f"{wall:.3f} s, device busy {out['device_busy_s']:.3f} s, idle "
-          f"share {out['idle_share']:.4f}, {launches} kernels [{name}]",
+                    for e in sorted(cuda, key=lambda e:
+                                    -e.self_device_time_total)[:top]])
+    print(f"trace {label}: wall {wall:.4f} s, device busy "
+          f"{out['device_busy_s']:.4f} s, idle share "
+          f"{out['idle_share']:.4f}, {out['kernels']} kernels [{name}]",
           flush=True)
     for key, sec, count in out["top"]:
-        print(f"    {sec:9.4f} s {count:8d}x {key[:90]}", flush=True)
+        print(f"    {sec:9.5f} s {count:7d}x {key[:100]}", flush=True)
     return out
+
+
+def profile(engine: str, jobs: int, trials: int, load: str,
+            name: str) -> dict:
+    """One engine run under :func:`trace`, after one to warm up."""
+    sim = QueueFlightSim(keygen_queue(), load=load, seed=0, device="cuda")
+    raptor = engine == "raptor"
+    sim.run(jobs, trials, raptor=raptor)                     # warm
+    config = sim.engine_config(engine)
+    out = trace(lambda: sim.run(jobs, trials, raptor=raptor), name,
+                f"{engine} {config} jobs={jobs}", top=5)
+    return dict(out, engine=engine, config=config, jobs=jobs, trials=trials)
 
 
 def main(argv=None) -> int:

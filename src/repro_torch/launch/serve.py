@@ -1,11 +1,19 @@
-"""Serving launcher: the live streaming Raptor scheduler service.
+"""Serving launcher: batched LM generation with optional Raptor flights,
+or the live streaming Raptor scheduler service.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+        --requests 4 --prompt-len 512 --decode-steps 32 --flight 2
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode scheduler \
         --workload keygen --load high --jobs 4096 --arrival mmpp
 
-Runs on the CUDA card unless ``--device cpu`` is given.  ``--scan
-logdepth --summary-backend kernel`` books through the ``maxplus_scan``
-kernel.
+Runs on the CUDA card unless ``--device cpu`` is given (with
+``--reduced`` for a model small enough for the CPU).  Generation runs the
+dense family (prefill attention through the ``flash_attention`` kernel,
+decode attention through ``decode_attention``); other families raise
+``NotImplementedError`` naming their ROADMAP item.  In scheduler mode
+``--scan logdepth --summary-backend kernel`` books through the
+``maxplus_scan`` kernel.
 """
 from __future__ import annotations
 
@@ -15,11 +23,24 @@ import sys
 
 def _build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=("scheduler",), default="scheduler",
-                    help="scheduler: the open-arrival Raptor scheduling "
-                         "service")
+    ap.add_argument("--mode", choices=("generate", "scheduler"),
+                    default="generate",
+                    help="generate: batched model serving; scheduler: the "
+                         "open-arrival Raptor scheduling service")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to book on (cuda or cpu)")
+                    help="torch device to run on (cuda or cpu)")
+    # -- generate mode -------------------------------------------------
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--decode-steps", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="KV-cache budget; default prompt+decode+8")
+    ap.add_argument("--flight", type=int, default=1)
+    ap.add_argument("--jitter-ms", type=float, default=0.0)
+    # -- scheduler mode ------------------------------------------------
     ap.add_argument("--workload", default="keygen",
                     choices=("keygen", "wordcount", "thumbnail",
                              "heavytail"))
@@ -40,10 +61,55 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 def _validate(args: argparse.Namespace) -> None:
+    if args.jitter_ms < 0.0:
+        raise ValueError(
+            f"--jitter-ms must be >= 0, got {args.jitter_ms}")
+    if args.prompt_len < 1:
+        raise ValueError(f"--prompt-len must be >= 1, got {args.prompt_len}")
+    if args.decode_steps < 1:
+        raise ValueError(
+            f"--decode-steps must be >= 1, got {args.decode_steps}")
+    max_len = (args.max_len if args.max_len is not None
+               else args.prompt_len + args.decode_steps + 8)
+    if args.prompt_len + args.decode_steps > max_len:
+        raise ValueError(
+            f"--prompt-len {args.prompt_len} + --decode-steps "
+            f"{args.decode_steps} overflows --max-len {max_len}")
+    args.max_len = max_len
     if args.jobs < 1:
         raise ValueError(f"--jobs must be >= 1, got {args.jobs}")
     if args.microbatch < 1:
         raise ValueError(f"--microbatch must be >= 1, got {args.microbatch}")
+
+
+def _run_generate(args) -> int:
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import (ServeConfig, ServingEngine,
+                                            demo_requests)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    params = init_params(cfg, args.seed, device=args.device)
+    eng = ServingEngine(cfg, params, ServeConfig(
+        max_len=args.max_len,
+        decode_steps=args.decode_steps, flight_size=args.flight,
+        mean_jitter_s=args.jitter_ms / 1e3), device=args.device)
+    batches = [demo_requests(cfg, args.batch, args.prompt_len, seed=i,
+                             device=args.device)
+               for i in range(args.requests)]
+    stats = eng.serve(batches, raptor=args.flight > 1)
+    s = stats.summary()
+    print(f"{cfg.name} on {eng.device}: first call {s['cold_s']*1e3:.0f} "
+          f"ms (kernel build and load), warm ref {s['warm_s']*1e3:.0f} ms "
+          f"(excluded from latencies)")
+    print(f"{s['requests']} requests: mean {s['mean_s']*1e3:.0f} ms  "
+          f"p50 {s['p50_s']*1e3:.0f} ms  p99 {s['p99_s']*1e3:.0f} ms")
+    if "prefill_s" in s:
+        print(f"  prefill {s['prefill_s']*1e3:.1f} ms, decode "
+              f"{s['decode_step_s']*1e3:.2f} ms/step, "
+              f"{args.batch / s['decode_step_s']:,.1f} tokens/s")
+    return 0
 
 
 def _run_scheduler(args) -> int:
@@ -82,7 +148,9 @@ def _run_scheduler(args) -> int:
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     _validate(args)
-    return _run_scheduler(args)
+    if args.mode == "scheduler":
+        return _run_scheduler(args)
+    return _run_generate(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,82 @@
+"""Core layers: norms, rotary embeddings, the gated MLP, attention.
+
+The port of ``repro/models/layers.py`` for the dense family.  Every
+self-attention of a prefill goes through :func:`attention` and so through
+the ``flash_attention`` kernel on the card; the reference's three jnp
+strategies (``attention_full``, ``attention_blockwise``,
+``attention_sliding_blocked``) are XLA memory layouts of that one
+function, and the tests hold the kernel's plain version to each of them.
+``apply_mrope`` (qwen2-vl) comes with the VLM slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import mha
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """RMS norm in float32, scaled by ``1 + scale``; back in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dt)
+
+
+def softcap(x, cap: float):
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def mlp_block(x, p, variant: str):
+    """SwiGLU / GeGLU gated MLP (GeGLU's GELU is the tanh approximation)."""
+    gate = x @ p["w_gate"]
+    up = x @ p["w_up"]
+    act = (F.silu(gate) if variant == "swiglu"
+           else F.gelu(gate, approximate="tanh"))
+    return (act * up) @ p["w_down"]
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_tables(positions, hd: int, theta: float):
+    """cos and sin of the rotary angles, float32 [B, S, 1, hd/2].  Every
+    layer of a pass rotates by the same positions, so a pass computes them
+    once (:func:`rotate`)."""
+    freqs = rope_freqs(hd, theta, positions.device)         # [hd/2]
+    ang = positions.float()[..., None] * freqs              # [B, S, hd/2]
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def rotate(x, cos, sin):
+    """Half-split rotary embedding in float32, given the tables.
+    x: [B, S, H, hd]."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """Half-split rotary embedding in float32.  x: [B, S, H, hd];
+    positions: [B, S] int."""
+    return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def attention(q, k, v, *, window: int = 0, logit_cap: float = 0.0,
+              scale: float):
+    """Causal self-attention of a prefill through the ``flash_attention``
+    kernel.  q: [B, S, Hq, hd]; k, v: [B, S, Hkv, hd] -> [B, S, Hq, hd].
+
+    The kernel reads the ``transpose(1, 2)`` views through their strides
+    and writes a ``[B, S, Hq, hd]`` buffer, so no copy is made here on the
+    card.
+    """
+    out = mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+              causal=True, window=window, logit_cap=logit_cap, scale=scale)
+    return out.transpose(1, 2)

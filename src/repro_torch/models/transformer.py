@@ -1,0 +1,394 @@
+"""The dense-family LM of the port: parameters, cache, prefill and decode.
+
+The port of ``repro/models/transformer.py`` for ``family == "dense"``
+(gemma-2b, gemma2-9b, gemma3-27b, phi3-mini): GQA attention with RoPE,
+global or local (sliding-window) layers, attention and final logit caps,
+a SwiGLU or GeGLU MLP, RMS norms.  The parameter pytree keeps the
+reference's names and orientation (``x @ wq`` with ``wq [d, hq*hd]``) as a
+module, :class:`ParamTree`: ``embed``, ``final_norm``, ``lm_head`` (untied
+heads only), ``layers.{i}.attn.{wq,wk,wv,wo}``,
+``layers.{i}.mlp.{w_gate,w_up,w_down}``, ``layers.{i}.ln1``, ``ln2``.
+
+Prefill attention goes through the ``flash_attention`` kernel and decode
+attention through ``decode_attention``.  The decode cache is a dict
+``{"index": int, "layer_{i}": {"k": [B, C, Hkv, hd], "v": ...}}``; unlike
+the reference's functional update, prefill and :func:`decode_step` write
+it IN PLACE (a step would otherwise copy the whole cache), so a caller
+that decodes twice from one prefill clones it first
+(:func:`clone_cache`).
+
+What this slice leaves out raises ``NotImplementedError`` naming its
+ROADMAP item: the MoE, SSM, hybrid, VLM (M-RoPE) and encoder-decoder
+families, ``pad_heads``, the sharding hooks (``constrain``, ``ep``) and
+training (``loss_fn``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.ops import gqa_decode
+from repro_torch.models.layers import (attention, mlp_block, rms_norm,
+                                       rope_tables, rotate, softcap)
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+_LEFT_OUT = {
+    "moe": "ROADMAP.md §1 item 14 (the MoE serve slice, kernel K5)",
+    "ssm": "ROADMAP.md §1 item 15 (the Mamba2/hybrid serve slice, kernel "
+           "K6)",
+    "hybrid": "ROADMAP.md §1 item 15 (the Mamba2/hybrid serve slice, "
+              "kernel K6)",
+    "vlm": "ROADMAP.md §1 item 16 (the VLM slice: M-RoPE, embedding "
+           "inputs)",
+    "audio": "ROADMAP.md §1 item 17 (the encoder-decoder slice)",
+    "sharding": "ROADMAP.md §1 item 13 (distributed)",
+    "training": "ROADMAP.md §1 item 18 (training and its backward "
+                "kernels)",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for a config
+    outside this slice (the dense family)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
+            f"see {_LEFT_OUT.get(cfg.family, _LEFT_OUT['training'])}")
+    if cfg.moe is not None or cfg.ssm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE/SSM layers are not ported yet; see "
+            f"{_LEFT_OUT['moe' if cfg.moe is not None else 'ssm']}")
+    if cfg.mrope or cfg.embedding_inputs:
+        raise NotImplementedError(
+            f"{cfg.name}: M-RoPE and embedding inputs are not ported yet; "
+            f"see {_LEFT_OUT['vlm']}")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet; see "
+            f"{_LEFT_OUT['audio']}")
+    if cfg.pad_heads:
+        raise NotImplementedError(
+            f"{cfg.name}: pad_heads={cfg.pad_heads} is a sharding knob of "
+            f"the reference's mesh; see {_LEFT_OUT['sharding']}")
+
+
+def refuse_sharding(constrain=None, ep=None) -> None:
+    """The reference's sharding hooks have no counterpart yet."""
+    if constrain is not None or ep is not None:
+        raise NotImplementedError(
+            f"constrain/ep (sharding constraints, expert parallelism) are "
+            f"not ported yet; see {_LEFT_OUT['sharding']}")
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+
+class ParamTree(nn.Module):
+    """A parameter pytree as a module.  Dict keys become attribute names
+    (so ``state_dict`` names follow the pytree: ``layers.0.attn.wq``),
+    lists become ``nn.ModuleList``s, and ``tree["key"]`` reads like the
+    reference's dicts.  Parameters carry no gradient (inference only)."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for name, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(name, ParamTree(val))
+            elif isinstance(val, (list, tuple)):
+                self.add_module(name, nn.ModuleList(ParamTree(t)
+                                                    for t in val))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
+                generator: torch.Generator | None = None) -> ParamTree:
+    """Random parameters as the reference draws them: every matrix
+    N(0, 0.02) in the model dtype, every norm scale 0 (float32), from a
+    seeded ``torch.Generator`` on ``device`` (the card unless given).  The
+    numbers differ from the reference's threefry draws; the tests share
+    weights through :func:`params_from_numpy` instead."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = generator or torch.Generator(device=dev).manual_seed(seed)
+    dt = DTYPES[cfg.dtype]
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=dt).mul_(0.02)
+
+    def zeros():
+        return torch.zeros(d, dtype=torch.float32, device=dev)
+
+    tree: Dict[str, Any] = {"embed": normal(cfg.vocab_size, d),
+                            "final_norm": zeros()}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = normal(d, cfg.vocab_size)
+    tree["layers"] = [
+        {"ln1": zeros(),
+         "attn": {"wq": normal(d, hq * hd), "wk": normal(d, hkv * hd),
+                  "wv": normal(d, hkv * hd), "wo": normal(hq * hd, d)},
+         "ln2": zeros(),
+         "mlp": {"w_gate": normal(d, cfg.d_ff), "w_up": normal(d, cfg.d_ff),
+                 "w_down": normal(cfg.d_ff, d)}}
+        for _ in range(cfg.num_layers)]
+    return ParamTree(tree)
+
+
+def _to_tensor(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":              # ml_dtypes' numpy bfloat16
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def params_from_numpy(tree, *, device=None) -> ParamTree:
+    """The reference's parameter pytree (``repro.models.init_params``
+    output, or any nest of dicts and lists of arrays), converted leaf by
+    leaf with ``np.asarray``, as the port's module on ``device``."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
+        return _to_tensor(t, dev)
+
+    return ParamTree(conv(tree))
+
+
+# --------------------------------------------------------------------------
+# attention block with cache handling
+# --------------------------------------------------------------------------
+
+def _attn_scale(cfg: ModelConfig) -> float:
+    base = cfg.query_pre_attn_scalar or cfg.resolved_head_dim
+    return float(base) ** -0.5
+
+
+def _project_qkv(x, p, cfg: ModelConfig, rope):
+    """q, k, v [B, S, H, hd], q and k rotated by ``rope`` = (cos, sin)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    return rotate(q, *rope), rotate(k, *rope), v
+
+
+def decode_positions(idx: int, cache_len: int, window: int, device):
+    """Absolute position of every cache slot at decode index ``idx``, -1
+    where the slot is empty or outside the window.  A global cache
+    (``window == 0``) holds position ``s`` in slot ``s``; a local ring
+    holds ``idx - ((idx - s) mod C)`` in slot ``s``."""
+    slots = torch.arange(cache_len, dtype=torch.int32, device=device)
+    if window:
+        kv_pos = idx - torch.remainder(idx - slots, cache_len)
+        valid = (kv_pos >= 0) & (kv_pos > idx - window) & (kv_pos <= idx)
+    else:
+        kv_pos = slots
+        valid = slots <= idx
+    return torch.where(valid, kv_pos, -1).to(torch.int32)
+
+
+def _ring_write(buf, vals, start: int) -> None:
+    """Write ``vals`` into the ring ``buf`` from slot ``start`` on, in
+    place."""
+    c, n = buf.shape[1], vals.shape[1]
+    idx = (torch.arange(n, device=buf.device) + start) % c
+    buf.index_copy_(1, idx, vals)
+
+
+def attention_block(x, p, cfg: ModelConfig, *, kind: str, mode: str,
+                    rope, cache=None):
+    """The attention sublayer with its cache write.  x: [B, S, D]; rope:
+    the (cos, sin) tables of the pass's positions (:func:`rope_tables`).
+
+    ``mode="prefill"`` attends over the prompt (``flash_attention``) and
+    writes its keys into ``cache``: a global layer at slots ``0..S-1``, a
+    local layer its last ``min(window, S)`` keys into the ring.
+    ``mode="decode"`` writes the one new key at ``min(idx, C-1)`` (global)
+    or ``idx mod C`` (local) and attends over the cache
+    (``decode_attention``) with ``cache["kv_pos"]``.
+    """
+    b, s, _ = x.shape
+    scale = _attn_scale(cfg)
+    cap = cfg.attn_logit_softcap
+    local = kind == "local_attn"
+    window = cfg.window_size if local else 0
+    q, k, v = _project_qkv(x, p, cfg, rope)
+
+    if mode == "decode":
+        idx = cache["index"]
+        cache_len = cache["k"].shape[1]
+        slot = idx % cache_len if local else min(idx, cache_len - 1)
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        kv_pos = cache.get("kv_pos")
+        if kv_pos is None:
+            kv_pos = decode_positions(idx, cache_len, window, x.device)
+        out = gqa_decode(q[:, 0], cache["k"], cache["v"], kv_pos,
+                         scale=scale, logit_cap=cap)
+        return out.reshape(b, 1, -1) @ p["wo"], cache
+    if mode != "prefill":
+        raise NotImplementedError(
+            f"mode {mode!r}: see {_LEFT_OUT['training']}")
+
+    out = attention(q, k, v, window=window, logit_cap=cap, scale=scale)
+    if cache is not None:
+        if local:
+            keep = min(window, s)
+            start = (s - keep) % cache["k"].shape[1]
+            _ring_write(cache["k"], k[:, s - keep:], start)
+            _ring_write(cache["v"], v[:, s - keep:], start)
+        else:
+            cache["k"][:, :s] = k
+            cache["v"][:, :s] = v
+    return out.reshape(b, s, -1) @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------
+# block and stack
+# --------------------------------------------------------------------------
+
+def _block_apply(x, p, cfg: ModelConfig, i: int, *, mode, rope,
+                 cache=None):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, cache = attention_block(h, p["attn"], cfg, kind=cfg.layer_kind(i),
+                               mode=mode, rope=rope, cache=cache)
+    x = x + y
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    y = mlp_block(h, p["mlp"], cfg.mlp_variant)
+    return x + y, cache, 0.0
+
+
+def apply_stack(params, cfg: ModelConfig, x, *, mode, positions,
+                caches=None):
+    """x: [B, S, D] embeddings; positions: [B, S].  Returns (hidden,
+    new_caches, aux_loss); the dense family's aux loss is 0."""
+    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    new_caches: Dict[str, Any] = {}
+    for i in range(cfg.num_layers):
+        c = caches.get(f"layer_{i}") if caches else None
+        x, c, _ = _block_apply(x, params["layers"][i], cfg, i, mode=mode,
+                               rope=rope, cache=c)
+        if c is not None:
+            new_caches[f"layer_{i}"] = c
+    return x, new_caches, 0.0
+
+
+# --------------------------------------------------------------------------
+# heads and entry points
+# --------------------------------------------------------------------------
+
+def _embed(params, cfg: ModelConfig, tokens):
+    return params["embed"][tokens].to(DTYPES[cfg.dtype])
+
+
+def _logits(params, cfg: ModelConfig, h):
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    logits = h @ head
+    if cfg.final_logit_softcap:
+        logits = softcap(logits.float(),
+                         cfg.final_logit_softcap).to(h.dtype)
+    return logits
+
+
+def loss_fn(*args, **kwargs):
+    raise NotImplementedError(f"training is not ported yet; see "
+                              f"{_LEFT_OUT['training']}")
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device=None) -> Dict[str, Any]:
+    """Preallocated decode cache (all zeros): a global layer holds
+    ``max_len`` slots, a local layer ``min(window, max_len)``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = DTYPES[cfg.dtype]
+    hd = cfg.resolved_head_dim
+    caches: Dict[str, Any] = {"index": 0}
+    for i in range(cfg.num_layers):
+        c_len = (min(cfg.window_size, max_len)
+                 if cfg.layer_kind(i) == "local_attn" else max_len)
+        shape = (batch, c_len, cfg.num_kv_heads, hd)
+        caches[f"layer_{i}"] = {
+            "k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    return caches
+
+
+def clone_cache(caches: Dict[str, Any]) -> Dict[str, Any]:
+    """A copy of a decode cache that can be decoded into independently."""
+    return {name: (dict((k, t.clone()) for k, t in c.items())
+                   if isinstance(c, dict) else c)
+            for name, c in caches.items()}
+
+
+def prefill(params, cfg: ModelConfig, batch, max_len: int, *,
+            constrain=None, ep=None):
+    """Run the full prompt; return (last-position logits [B, V], filled
+    cache).  ``batch``: {"tokens": [B, S] int, optional "positions"}."""
+    check_supported(cfg)
+    refuse_sharding(constrain, ep)
+    x = _embed(params, cfg, batch["tokens"])
+    b, s = x.shape[0], x.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    caches = init_cache(cfg, b, max_len, device=x.device)
+    h, new_caches, _ = apply_stack(params, cfg, x, mode="prefill",
+                                   positions=positions, caches=caches)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, cfg, h[:, -1:])
+    new_caches["index"] = s
+    return logits[:, 0], new_caches
+
+
+def decode_step(params, cfg: ModelConfig, caches, tokens, *,
+                constrain=None, ep=None):
+    """One decode step.  tokens: [B, 1] int.  Writes the new keys into
+    ``caches`` in place; returns (logits [B, V], caches with index + 1)."""
+    check_supported(cfg)
+    refuse_sharding(constrain, ep)
+    x = _embed(params, cfg, tokens)
+    b = x.shape[0]
+    idx = int(caches["index"])
+    positions = torch.full((b, 1), idx, dtype=torch.int32, device=x.device)
+    # one kv_pos per (cache length, window), shared by the layers
+    kv_pos: Dict[tuple, torch.Tensor] = {}
+    run_caches = {}
+    for i in range(cfg.num_layers):
+        c = caches[f"layer_{i}"]
+        key = (c["k"].shape[1], cfg.window_size
+               if cfg.layer_kind(i) == "local_attn" else 0)
+        if key not in kv_pos:
+            kv_pos[key] = decode_positions(idx, *key, device=x.device)
+        run_caches[f"layer_{i}"] = dict(c, index=idx, kv_pos=kv_pos[key])
+    h, new_caches, _ = apply_stack(params, cfg, x, mode="decode",
+                                   positions=positions, caches=run_caches)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, cfg, h)
+    out = {name: {"k": c["k"], "v": c["v"]}
+           for name, c in new_caches.items()}
+    out["index"] = idx + 1
+    return logits[:, 0], out

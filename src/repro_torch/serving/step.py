@@ -1,0 +1,45 @@
+"""Serving step builders: prefill and decode as plain functions.
+
+The port of ``repro/serving/step.py``.  PyTorch runs eagerly, so there is
+nothing to jit: each builder closes over the config and returns the step.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int, constrain=None,
+                      ep=None):
+    tfm.check_supported(cfg)
+    tfm.refuse_sharding(constrain, ep)
+
+    def prefill_step(params, batch):
+        return tfm.prefill(params, cfg, batch, max_len)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, constrain=None, ep=None):
+    tfm.check_supported(cfg)
+    tfm.refuse_sharding(constrain, ep)
+
+    def decode_step(params, caches, tokens):
+        return tfm.decode_step(params, cfg, caches, tokens)
+    return decode_step
+
+
+def cache_shape(cfg: ModelConfig, batch: int, max_len: int):
+    """The decode cache's tensors on the ``meta`` device: shapes and
+    dtypes, no allocation."""
+    return tfm.init_cache(cfg, batch, max_len, device="meta")
+
+
+def greedy_sample(logits):
+    """argmax over the vocabulary, the lowest index on a tie (as
+    ``jnp.argmax``); int32 [B]."""
+    top = logits.max(dim=-1, keepdim=True).values
+    idx = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(logits == top, idx, logits.shape[-1]).min(
+        dim=-1).values.to(torch.int32)

@@ -49,17 +49,35 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         QueueFlightSim(keygen_queue(), device="cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        serve.main(["--jobs", "8"])
+        serve.main(["--mode", "scheduler", "--jobs", "8"])
     assert QueueFlightSim(keygen_queue(), device="cpu").device.type == "cpu"
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    cfg = reduced_config(get_config("gemma2-9b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, None, ServeConfig(), device=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--mode", "generate", "--arch", "gemma2-9b",
+                    "--reduced"])
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):
     from repro_torch.launch import serve
-    assert serve.main(["--device", "cpu", "--jobs", "48", "--microbatch",
+    assert serve.main(["--mode", "scheduler", "--device", "cpu", "--jobs",
+                       "48", "--microbatch",
                        "16", "--arrival", "mmpp", "--scan", "logdepth",
                        "--summary-backend", "kernel"]) == 0
     out = capsys.readouterr().out
     assert "sustained" in out and "cpu" in out
+
+
+def test_generate_launcher_runs_on_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--mode", "generate", "--arch", "gemma2-9b",
+                       "--reduced", "--device", "cpu", "--flight", "2",
+                       "--requests", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "gemma2-9b-smoke on cpu" in out and "4 requests" in out
 
 
 def test_summaries_match_numpy():

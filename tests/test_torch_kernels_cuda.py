@@ -1,11 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card.
 
-Each kernel is built with nvcc from ``src/repro_torch/csrc`` and must be
-BITWISE equal to the plain version beside it (tolerance zero: both run
-the same compares, selects, maxes and adds in the same order) at the
-reference tests' shapes and at the engine's, and every launch must be
-counted.  The plain versions are held to the JAX reference on the CPU by
+Each kernel is built with nvcc from ``src/repro_torch/csrc`` and every
+launch must be counted.  The two scheduling kernels must be BITWISE equal
+to the plain version beside them (tolerance zero: both run the same
+compares, selects, maxes and adds in the same order) at the reference
+tests' shapes and at the engine's.  The two attention kernels sum in
+another order than their plain versions, so they are held to the
+reference kernel tests' tolerances: 2e-5 in float32, 2e-2 in bfloat16,
+at those tests' shapes, at gemma2-9b's head shapes and through the model's
+``[B, S, H, D]`` strides.  The plain versions are held to the JAX reference on the CPU by
 tests/test_torch_kernels.py.  Every test here is marked ``cuda`` and
 skips where there is no card; on a GPU machine run
 
@@ -16,6 +20,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention_plain, gqa_decode)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    attention_plain, mha)
 from repro_torch.kernels.maxplus_scan.ops import (  # noqa: E402
     maxplus_entries, maxplus_entries_plain)
 from repro_torch.kernels.queue_booking.ops import (  # noqa: E402
@@ -106,3 +114,115 @@ def test_book_kernel_tile_invariance(cuda):
     for block in (32, 64, 333, 4096):
         for a, b in zip(base, book_stream(*args, block=block)):
             _eq(a, b)
+
+
+# b, hq, hkv, sq, sk, d, causal, window, cap: the reference kernel tests'
+# cases, the head dims the kernel takes, ragged tiles and gemma2-9b's heads
+FLASH_CASES = [
+    (1, 1, 1, 128, 128, 64, True, 0, 0.0),
+    (2, 4, 2, 256, 256, 64, True, 0, 0.0),
+    (1, 8, 1, 128, 128, 128, True, 0, 0.0),
+    (1, 2, 2, 256, 256, 64, True, 128, 0.0),
+    (1, 2, 1, 256, 256, 64, True, 0, 50.0),
+    (1, 2, 2, 192, 192, 64, True, 0, 0.0),
+    (2, 2, 2, 128, 128, 64, False, 0, 0.0),
+    (1, 4, 2, 100, 300, 32, True, 70, 30.0),
+    (2, 4, 4, 77, 77, 96, True, 0, 0.0),
+    (1, 16, 8, 320, 320, 256, True, 128, 50.0),
+    (1, 16, 8, 200, 200, 256, True, 0, 50.0),
+]
+# b, hq, hkv, c, d, valid, cap: the reference's cases, a ring, gemma2-9b's
+DECODE_CASES = [
+    (1, 1, 1, 256, 64, None, 0.0),
+    (2, 8, 2, 512, 64, None, 0.0),
+    (1, 16, 1, 256, 128, None, 0.0),
+    (2, 4, 4, 512, 64, 300, 0.0),
+    (1, 8, 8, 256, 64, None, 50.0),
+    (2, 16, 8, 4648, 256, 4620, 50.0),
+    (2, 16, 8, 4096, 256, "ring", 50.0),
+    (3, 6, 2, 1000, 96, "ring", 0.0),
+    (1, 8, 8, 37, 32, None, 0.0),
+]
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,cap", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda, b, hq, hkv, sq, sk, d,
+                                            causal, window, cap, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((b, hq, sq, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, hkv, sk, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, hkv, sk, d), generator=g, device=cuda).to(dtype)
+    n0 = mha.launches
+    got = mha(q, k, v, causal=causal, window=window, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert mha.launches == n0 + 1
+    _close(got, attention_plain(q, k, v, causal=causal, window=window,
+                                logit_cap=cap), dtype)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_the_model_layout(cuda):
+    """q, k, v as ``transpose(1, 2)`` views of [B, S, H, D] tensors (the
+    model's projections), as the prefill passes them."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, s, hq, hkv, d = 2, 300, 16, 8, 256
+    x = torch.randn((b, s, hq + 2 * hkv, d), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    q, k, v = x[:, :, :hq], x[:, :, hq:hq + hkv], x[:, :, hq + hkv:]
+    got = mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+              window=128, logit_cap=50.0, scale=224 ** -0.5)
+    assert got.transpose(1, 2).is_contiguous()
+    want = attention_plain(q.transpose(1, 2).contiguous(),
+                           k.transpose(1, 2).contiguous(),
+                           v.transpose(1, 2).contiguous(), window=128,
+                           logit_cap=50.0, scale=224 ** -0.5)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 2, 64, 80), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        mha(q, q, q)
+    with pytest.raises(TypeError):
+        h = q[..., :64].half()
+        mha(h, h, h)
+
+
+def _ring(idx, c, window):
+    slots = np.arange(c)
+    kv_pos = idx - ((idx - slots) % c)
+    ok = (kv_pos >= 0) & (kv_pos > idx - window) & (kv_pos <= idx)
+    return np.where(ok, kv_pos, -1).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,c,d,valid,cap", DECODE_CASES)
+def test_decode_kernel_matches_plain_on_card(cuda, b, hq, hkv, c, d, valid,
+                                             cap, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, c, hkv, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, c, hkv, d), generator=g, device=cuda).to(dtype)
+    pos = np.arange(c, dtype=np.int32)
+    if valid == "ring":
+        pos = _ring(c + 700, c, c - 300)
+        assert (pos < 0).any()
+    elif valid is not None:
+        pos[valid:] = -1
+    pos = torch.as_tensor(pos, device=cuda)
+    n0 = gqa_decode.launches
+    got = gqa_decode(q, k, v, pos, scale=0.07, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert gqa_decode.launches == n0 + 1
+    _close(got, decode_attention_plain(q, k, v, pos, scale=0.07,
+                                       logit_cap=cap), dtype)

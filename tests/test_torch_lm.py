@@ -1,0 +1,214 @@
+"""The port's LM serving path against the JAX reference, on the CPU.
+
+* Configs: all ten architectures (and their reduced forms) equal the
+  reference field by field.
+* Model: the reduced dense configs (gemma-2b, gemma2-9b, gemma3-27b,
+  phi3-mini) share the reference's weights through ``params_from_numpy``;
+  ``prefill`` of a 16-token prompt and 10 teacher-forced ``decode_step``s
+  agree with the reference's logits and caches within 1e-4 (float32; the
+  reduced window of 8 makes the local layers' ring wrap in both).
+* Engine: ``ServingEngine.generate`` gives the reference's greedy tokens
+  exactly, and ``generate_flight`` the same tokens as ``generate``.
+* Scheduler: the cases of tests/test_core_engine.py run against the
+  port's ``Flight``, ``StateStream``, ``TaskContext`` and
+  ``RaptorScheduler``.
+* Families outside the slice are refused with ``NotImplementedError``
+  naming their ROADMAP item.
+"""
+import dataclasses
+import inspect
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)     # small tensors; the test workers share cores
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+import test_core_engine as core_cases  # noqa: E402
+from repro.configs import ARCH_NAMES as J_ARCHS  # noqa: E402
+from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.configs import reduced_config as j_reduced  # noqa: E402
+from repro.models import transformer as jt  # noqa: E402
+from repro.serving import engine as je  # noqa: E402
+from repro_torch.configs import ARCH_NAMES, get_config, reduced_config  # noqa: E402
+from repro_torch.core import manifest as tmanifest  # noqa: E402
+from repro_torch.core import scheduler as tsched  # noqa: E402
+from repro_torch.models import transformer as tt  # noqa: E402
+from repro_torch.serving import engine as te  # noqa: E402
+from repro_torch.serving.step import cache_shape, greedy_sample  # noqa: E402
+
+DENSE = ("gemma-2b", "gemma2-9b", "gemma3-27b", "phi3-mini-3.8b")
+PROMPT, STEPS, BATCH = 16, 10, 2
+TOL = 1e-4
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("name", J_ARCHS)
+def test_configs_equal_reference(name):
+    assert ARCH_NAMES == J_ARCHS
+    ours, ref = get_config(name), j_get_config(name)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(reduced_config(ours)) == dataclasses.asdict(
+        j_reduced(ref))
+    assert ours.param_counts() == ref.param_counts()
+
+
+def _shared_model(name):
+    cfg = reduced_config(get_config(name))
+    jparams = jt.init_params(j_reduced(j_get_config(name)),
+                             jax.random.PRNGKey(0))
+    params = tt.params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                         jparams),
+                                  device="cpu")
+    return cfg, jparams, params
+
+
+def _assert_caches(got, want):
+    assert int(got["index"]) == int(want["index"])
+    for name, c in want.items():
+        if name == "index":
+            continue
+        for kv in ("k", "v"):
+            np.testing.assert_allclose(_np(got[name][kv]), _np(c[kv]),
+                                       atol=TOL, rtol=TOL,
+                                       err_msg=f"{name}.{kv}")
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_prefill_and_decode_match_reference(name):
+    cfg, jparams, params = _shared_model(name)
+    jcfg = j_reduced(j_get_config(name))
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    forced = rng.integers(0, cfg.vocab_size, (BATCH, STEPS)).astype(np.int32)
+    max_len = PROMPT + STEPS
+
+    jpre = jax.jit(lambda p, t: jt.prefill(p, jcfg, {"tokens": t}, max_len))
+    jdec = jax.jit(lambda p, c, t: jt.decode_step(p, jcfg, c, t))
+    jlog, jcache = jpre(jparams, jnp.asarray(prompt))
+    log, cache = tt.prefill(params, cfg, {"tokens": torch.as_tensor(prompt)},
+                            max_len)
+    np.testing.assert_allclose(_np(log), _np(jlog), atol=TOL, rtol=TOL)
+    _assert_caches(cache, jcache)
+    for i in range(STEPS):
+        tok = forced[:, i:i + 1]
+        jlog, jcache = jdec(jparams, jcache, jnp.asarray(tok))
+        log, cache = tt.decode_step(params, cfg, cache, torch.as_tensor(tok))
+        np.testing.assert_allclose(_np(log), _np(jlog), atol=TOL, rtol=TOL,
+                                   err_msg=f"decode step {i}")
+    _assert_caches(cache, jcache)
+
+
+def test_param_names_follow_the_reference_pytree():
+    cfg, jparams, params = _shared_model("phi3-mini-3.8b")
+    flat = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    names = {".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                      for k in path) for path, _ in flat}
+    assert set(params.state_dict()) == names
+    assert "lm_head" in names and "layers.1.mlp.w_down" in names
+    drawn = tt.init_params(cfg, 0, device="cpu")
+    assert {n: tuple(t.shape) for n, t in drawn.state_dict().items()} == {
+        n: tuple(t.shape) for n, t in params.state_dict().items()}
+    std = float(drawn["layers"][0]["attn"]["wq"].std())
+    assert 0.015 < std < 0.025
+    assert float(drawn["final_norm"].abs().max()) == 0.0
+
+
+def test_cache_shape_allocates_nothing():
+    cfg = get_config("gemma2-9b")
+    shapes = cache_shape(cfg, 2, 4648)
+    assert shapes["layer_0"]["k"].device.type == "meta"
+    assert tuple(shapes["layer_0"]["k"].shape) == (2, 4096, 8, 256)
+    assert tuple(shapes["layer_1"]["v"].shape) == (2, 4648, 8, 256)
+    assert shapes["layer_1"]["v"].dtype == torch.bfloat16
+
+
+def test_greedy_sample_takes_the_lowest_index_on_a_tie():
+    logits = torch.tensor([[0.0, 2.0, 2.0, 1.0], [5.0, 5.0, 5.0, 5.0],
+                           [-1.0, -3.0, -2.0, -1.0]])
+    assert greedy_sample(logits).tolist() == [1, 0, 0]
+    assert greedy_sample(logits).dtype == torch.int32
+    np.testing.assert_array_equal(
+        greedy_sample(logits).numpy(),
+        np.asarray(jnp.argmax(jnp.asarray(logits.numpy()), axis=-1)))
+
+
+def test_generate_matches_reference_tokens():
+    name = "gemma2-9b"
+    cfg, jparams, params = _shared_model(name)
+    jcfg = j_reduced(j_get_config(name))
+    sc = dict(max_len=PROMPT + STEPS + 4, decode_steps=STEPS)
+    jeng = je.ServingEngine(jcfg, jparams, je.ServeConfig(**sc))
+    eng = te.ServingEngine(cfg, params, te.ServeConfig(**sc), device="cpu")
+    for seed in (0, 1):
+        want = jeng.generate(je.demo_requests(jcfg, BATCH, PROMPT,
+                                              seed=seed)).tokens
+        got = eng.generate(te.demo_requests(cfg, BATCH, PROMPT, seed=seed,
+                                            device="cpu"))
+        np.testing.assert_array_equal(got.tokens, want)
+        assert got.prefill_s > 0 and got.decode_s > 0
+
+
+def test_generate_flight_matches_generate():
+    cfg, _, params = _shared_model("gemma-2b")
+    batch = te.demo_requests(cfg, BATCH, PROMPT, seed=3, device="cpu")
+    sc = dict(max_len=PROMPT + STEPS, decode_steps=STEPS)
+    plain = te.ServingEngine(cfg, params, te.ServeConfig(**sc),
+                             device="cpu").generate(batch)
+    flight = te.ServingEngine(
+        cfg, params, te.ServeConfig(flight_size=2, mean_jitter_s=0.002, **sc),
+        device="cpu")
+    res = flight.generate_flight(batch)
+    np.testing.assert_array_equal(res.tokens, plain.tokens)
+    assert res.flight_report.ok and len(res.flight_report.executors) == 2
+    stats = flight.serve([batch, batch])
+    assert stats.summary()["requests"] == 2 * BATCH
+
+
+# the names tests/test_core_engine.py imports from the reference
+_CORE_NAMES = {
+    tmanifest: ("ActionManifest", "ExecutionContext", "FunctionSpec",
+                "parallel", "sequential"),
+    tsched: ("Flight", "Preempted", "RaptorScheduler", "StateStream",
+             "TaskContext", "TaskResult"),
+}
+_CORE_CASES = [n for n, f in inspect.getmembers(core_cases,
+                                                inspect.isfunction)
+               if n.startswith("test_")]
+
+
+@pytest.mark.parametrize("case", _CORE_CASES)
+def test_core_engine_cases_on_port(case, monkeypatch):
+    """Each case of tests/test_core_engine.py, with the module's engine and
+    manifest names pointing at the port's classes."""
+    for mod, names in _CORE_NAMES.items():
+        for name in names:
+            assert getattr(core_cases, name) is not getattr(mod, name)
+            monkeypatch.setattr(core_cases, name, getattr(mod, name))
+    getattr(core_cases, case)()
+
+
+@pytest.mark.parametrize("name", [n for n in ARCH_NAMES if n not in DENSE])
+def test_other_families_name_their_roadmap_item(name):
+    cfg = reduced_config(get_config(name))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 1\d"):
+        tt.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        te.ServingEngine(cfg, None, te.ServeConfig(), device="cpu")
+
+
+def test_left_out_features_are_refused():
+    cfg = reduced_config(get_config("gemma2-9b"))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tt.init_params(dataclasses.replace(cfg, pad_heads=8), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        tt.loss_fn(None, cfg, {})
+    params = tt.init_params(cfg, device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tt.prefill(params, cfg, batch, 8, constrain=lambda t, r: t)
