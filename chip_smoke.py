@@ -3,17 +3,23 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths (``src/repro_torch``) once each at full
-width, after building the four hand-written CUDA kernels from the sources
-in the checkout.  The scheduler path: the paper's HA deployment (15
-workers over 3 AZs), keygen at load ``high``, fig6's 1,800 s stream
-(10,658 jobs per trial) and 32 trials.  The LM serving path: gemma2-9b at
-full width (42 layers, d_model 3584, 16 q / 8 kv heads of 256, vocab
-256,000, bf16, random weights from seed 0) serving 3 batches of 2 prompts
-of 4,608 tokens with 32 decode steps each, then one Raptor flight of 2.
+Drives the port's paths (``src/repro_torch``) once each at full width,
+after building the six hand-written CUDA kernels from the sources in the
+checkout.  The scheduler path: the paper's HA deployment (15 workers over
+3 AZs), keygen at load ``high``, fig6's 1,800 s stream (10,658 jobs per
+trial) and 32 trials.  The LM serving paths, each with random weights from
+seed 0 in bf16 serving 3 batches of 2 prompts with 32 greedy decode steps
+each, then one Raptor flight of 2: the dense path, gemma2-9b at full width
+(42 layers, d_model 3584, 16 q / 8 kv heads of 256, vocab 256,000; prompts
+of 4,608 tokens); the MoE path, granite-moe-3b-a800m at full width (32
+layers, d_model 1536, 24 q / 8 kv heads of 64, 40 experts top-8 of ff 512,
+vocab 49,155; prompts of 4,096); the hybrid path, zamba2-1.2b at full width
+(38 Mamba2 layers, d_model 2048, 64 SSM heads of 64, state 64, and a shared
+attention+MLP block of 32 heads of 64 and ff 8,192 after every 6th layer;
+prompts of 4,096).
 
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build all four kernels (one nvcc per source, in parallel), timed;
+2. build all six kernels (one nvcc per source, in parallel), timed;
 3. ``queue_booking`` against its plain PyTorch version, bitwise, at the
    engine's stock shape and the reference tests' shapes, timed;
 4. ``maxplus_scan`` against its plain version, bitwise, on integer tapes
@@ -31,19 +37,35 @@ of 4,608 tokens with 32 decode steps each, then one Raptor flight of 2.
 8. ``decode_attention`` against its plain version at the decode's shapes
    (bf16, B=2, C=4648 and 4096, the model's ring positions and random
    holes) within the bf16 bar, timed beside SDPA with a mask at cap 0;
-9. LM serve: ``ServingEngine.serve`` and one ``generate_flight`` (tokens
-   equal to ``generate``'s) on the card, with exactly 42 flash_attention
-   launches per prefill and 42 decode_attention launches per decode step;
-   then the wiring at real shapes (prefill and 4 teacher-forced decode
-   steps): in bf16 every kernel call against its plain version on the
-   model's own activations within the bf16 bar, and the logits no further
-   (rms) from the plain attention's than bf16 itself puts them from
-   float32;
-   with the same weights in float32, logits within 1e-3 x max |logit| of
-   the plain attention's;
-10. one JSON line listing each kernel (launches on its path, error
+9. LM serve, gemma2-9b: ``ServingEngine.serve`` and one
+   ``generate_flight`` (tokens equal to ``generate``'s) on the card, with
+   exactly 42 flash_attention launches per prefill and 42 decode_attention
+   launches per decode step; then the wiring at real shapes (prefill and 4
+   teacher-forced decode steps): in bf16 every kernel call against its
+   plain version on the model's own activations within the bf16 bar, and
+   the logits no further (rms) from the plain attention's than bf16
+   itself puts them from float32; with the same weights in float32,
+   logits within 1e-3 x max |logit| of the plain attention's;
+10. ``expert_matmul`` against its plain version at the MoE path's four
+   shapes (E=40; prefill C=2048 and decode C=4; D x F = 1536 x 512 and
+   512 x 1536), bf16 within the bar of ``TOL`` and float32 within the
+   reference's 1e-5 x D, timed beside ``torch.bmm``;
+11. ``ssd_scan`` against its plain version at the hybrid path's shape
+   (B=2, S=4096, 64 heads, P=N=64, chunk 256), y and the final state
+   within the reference's 2e-4 + 2e-4 x |plain|, timed;
+12. LM serve, granite-moe-3b-a800m, as phase 9: exactly 96
+   expert_matmul launches (3 per layer) and 32 attention launches per
+   prefill and per decode step; the flight; the wiring run with every
+   expert_matmul, flash_attention and decode_attention call held to its
+   plain version on the model's activations;
+13. LM serve, zamba2-1.2b, likewise: exactly 38 ssd_scan and 6
+   flash_attention launches per prefill and 6 decode_attention launches
+   per decode step; the flight; every ssd_scan call of the wiring run
+   within 2e-4 of its plain version, every attention call within the
+   bf16 bar;
+14. one JSON line listing each kernel (launches on its path, error
    against the plain version, times, bound, library time);
-11. the last line: ``{"ok": true, "device": {...}}``.
+15. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.  A copy
@@ -53,6 +75,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -75,6 +98,13 @@ ARCH = "gemma2-9b"
 LM_BATCH, PROMPT, DECODE_STEPS, LM_BATCHES = 2, 4608, 32, 3
 MAX_LEN = PROMPT + DECODE_STEPS + 8
 WIRING_STEPS = 4
+# the MoE and hybrid serving paths: 3 batches of 2 prompts of 4,096 tokens
+# (a multiple of the SSD chunk), 32 decode steps each
+MOE_ARCH, HYBRID_ARCH = "granite-moe-3b-a800m", "zamba2-1.2b"
+PROMPT2 = 4096
+MAX_LEN2 = PROMPT2 + DECODE_STEPS + 8
+# ssd_scan against plain: the reference kernel test's bar (atol, rtol)
+SSD_TOL = (2e-4, 2e-4, math.inf)
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
@@ -145,17 +175,22 @@ def compare(got, want) -> float:
     return err
 
 
-def close(got, want, name: str) -> tuple:
-    """Raise unless ``got`` is finite and every element is within the
-    ``TOL`` bar of ``want``'s dtype; return (the largest absolute error,
-    the largest share of its element's bar)."""
+def close(got, want, name: str, bar=None) -> tuple:
+    """Raise unless ``got`` is finite and every element is within ``bar``
+    = (atol, rtol, cap), by default the ``TOL`` bar of ``want``'s dtype;
+    return (the largest absolute error, the largest share of its element's
+    bar).  Tuples are compared element by element."""
     import torch
+    if isinstance(want, tuple):
+        parts = [close(g, w, f"{name}[{i}]", bar)
+                 for i, (g, w) in enumerate(zip(got, want))]
+        return max(p[0] for p in parts), max(p[1] for p in parts)
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: shape/dtype {got.shape}/{got.dtype} "
                              f"vs {want.shape}/{want.dtype}")
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: kernel output is not finite")
-    atol, rtol, cap = TOL[str(want.dtype).removeprefix("torch.")]
+    atol, rtol, cap = bar or TOL[str(want.dtype).removeprefix("torch.")]
     diff = (got.double() - want.double()).abs()
     err = float(diff.max())
     share = float((diff / (atol + rtol * want.double().abs())).max())
@@ -222,9 +257,11 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ops import attention_plain, mha
     from repro_torch.kernels.maxplus_scan.ops import (
         maxplus_entries, maxplus_entries_plain)
+    from repro_torch.kernels.moe_gmm.ops import expert_matmul_plain, gmm
+    from repro_torch.kernels.ssd_scan.ops import ssd, ssd_plain
     from repro_torch.kernels.queue_booking.ops import (book_stream,
                                                        book_stream_plain)
-    from repro_torch.models import layers
+    from repro_torch.models import layers, mamba2, moe
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.engine import (SchedulerService, ServeConfig,
                                             ServingEngine, demo_requests)
@@ -689,10 +726,246 @@ def main() -> int:
                                greedy_agreement=agree16,
                                wiring_f32_max_abs=err32,
                                greedy_agreement_f32=agree32)
-    del params, eng, flight_eng
+    # the engines and the flight's closures hold the weights in reference
+    # cycles, which only the collector frees
+    del params, eng, flight_eng, flown, frep, plain_run
+    gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- 10. kernels line --------------------------------------------------
+    # ---- 10. expert_matmul vs plain ---------------------------------
+    mcfg = get_config(MOE_ARCH)
+    n_exp, d_model, e_ff = (mcfg.moe.num_experts, mcfg.d_model,
+                            mcfg.moe.expert_ff)
+    cap_prefill = moe.moe_capacity(LM_BATCH * PROMPT2, mcfg.moe)
+    cap_decode = moe.moe_capacity(LM_BATCH, mcfg.moe)
+    # (C, D, F, launches of that shape per forward): gate and up, then down
+    k5_shapes = [(c, d_, f_, n) for c in (cap_prefill, cap_decode)
+                 for d_, f_, n in ((d_model, e_ff, 2), (e_ff, d_model, 1))]
+    k5 = {"err": 0.0, "share": 0.0, "err32": 0.0, "rows": []}
+    for c, d_, f_, n in k5_shapes:
+        # the path's operands: normed activations against N(0, 0.02)
+        # weights, so the outputs have the model's scale
+        buf = torch.randn((n_exp, c, d_), generator=gen, device=dev)
+        w = torch.randn((n_exp, d_, f_), generator=gen, device=dev) * 0.02
+        want32 = expert_matmul_plain(buf, w)
+        got32 = gmm(buf, w)
+        err32 = float((got32 - want32).abs().max())
+        if not bool(((got32 - want32).abs()
+                     <= 1e-5 * d_ + 1e-5 * want32.abs()).all()):
+            raise AssertionError(f"expert_matmul float32 C={c} D={d_}: max "
+                                 f"abs err {err32} over 1e-5 x D")
+        del got32, want32
+        b16, w16 = buf.to(bf16), w.to(bf16)
+        err, share = close(gmm(b16, w16), expert_matmul_plain(b16, w16),
+                           f"expert_matmul C={c} D={d_}")
+        ops_ms = 1e3 * 2 * n_exp * c * d_ * f_ / BF16_OPS_PER_S
+        bytes_ms = 1e3 * 2 * n_exp * (c * d_ + d_ * f_ + c * f_) \
+            / HBM_BYTES_PER_S
+        row = {"C": c, "D": d_, "F": f_, "per_forward": n,
+               "ms": time_ms(lambda: gmm(b16, w16), reps=20),
+               "plain_ms": time_ms(lambda: expert_matmul_plain(b16, w16),
+                                   reps=3),
+               "bmm_ms": time_ms(lambda: torch.bmm(b16, w16), reps=20),
+               "ms_f32": time_ms(lambda: gmm(buf, w), reps=5),
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+        k5["rows"].append(row)
+        k5.update(err=max(k5["err"], err), share=max(k5["share"], share),
+                  err32=max(k5["err32"], err32))
+        del buf, w, b16, w16
+    say(f"phase 10 expert_matmul (E={n_exp}; bf16 within the bar of TOL, "
+        f"float32 within 1e-5 x D): max abs err bf16 "
+        f"{k5['err']:.3g} ({k5['share']:.3f} of the bar at worst), float32 "
+        f"{k5['err32']:.3g}; "
+        + "; ".join(f"C={r['C']} D={r['D']} F={r['F']}: kernel "
+                    f"{r['ms']:.4f} ms (float32 {r['ms_f32']:.4f}), plain "
+                    f"{r['plain_ms']:.4f} ms, torch.bmm {r['bmm_ms']:.4f} ms, "
+                    f"bound {r['bound_ms']:.4f} ms" for r in k5["rows"])
+        + f" [{card}]")
+
+    # ---- 11. ssd_scan vs plain -------------------------------------------
+    hcfg = get_config(HYBRID_ARCH)
+    ssm = hcfg.ssm
+    n_heads = ssm.expand * hcfg.d_model // ssm.head_dim
+    shape = (LM_BATCH, PROMPT2, n_heads, ssm.head_dim)
+    # the reference kernel test's input law
+    xs = torch.randn(shape, generator=gen, device=dev)
+    dts = F.softplus(torch.randn(shape[:3], generator=gen, device=dev))
+    A = -torch.exp(torch.randn((n_heads,), generator=gen, device=dev) * 0.3)
+    Bs = torch.randn((LM_BATCH, PROMPT2, ssm.ngroups, ssm.state_dim),
+                     generator=gen, device=dev) * 0.5
+    Cs = torch.randn(Bs.shape, generator=gen, device=dev) * 0.5
+    ssd_args = (xs, dts, A, Bs, Cs)
+    k6_err, k6_share = close(ssd(*ssd_args, chunk=ssm.chunk_size),
+                             ssd_plain(*ssd_args, chunk=ssm.chunk_size),
+                             "ssd_scan", SSD_TOL)
+    k6_ms = time_ms(lambda: ssd(*ssd_args, chunk=ssm.chunk_size), reps=5)
+    k6_plain_ms = time_ms(lambda: ssd_plain(*ssd_args, chunk=ssm.chunk_size),
+                          reps=2)
+    # the least work: the plain recurrence, 5 P N operations per step and
+    # head (decay the state, add dt x B^T, read y = S C)
+    p_, n_ = ssm.head_dim, ssm.state_dim
+    k6_ops = 5 * p_ * n_ * LM_BATCH * PROMPT2 * n_heads
+    k6_bytes = 4 * (2 * xs.numel() + dts.numel() + A.numel() + 2 * Bs.numel()
+                    + LM_BATCH * n_heads * p_ * n_)
+    k6_bound = 1e3 * max(k6_ops / FP32_OPS_PER_S, k6_bytes / HBM_BYTES_PER_S)
+    say(f"phase 11 ssd_scan (B={LM_BATCH}, S={PROMPT2}, H={n_heads}, "
+        f"P={p_}, N={n_}, chunk {ssm.chunk_size}): max abs err {k6_err:.3g} "
+        f"({k6_share:.3f} of 2e-4 + 2e-4 x |plain| at worst), kernel "
+        f"{k6_ms:.4f} ms, plain {k6_plain_ms:.4f} ms, bound {k6_bound:.4f} "
+        f"ms (operations) [{card}]")
+    del xs, dts, A, Bs, Cs, ssd_args
+
+    # ---- 12-13. LM serve: the MoE and hybrid paths ---------------------
+    entries = {"flash_attention": (layers, "mha", mha, attention_plain, None),
+               "decode_attention": (tfm, "gqa_decode", gqa_decode,
+                                    decode_attention_plain, None),
+               "expert_matmul": (moe, "gmm", gmm, expert_matmul_plain, None),
+               "ssd_scan": (mamba2, "ssd", ssd, ssd_plain, SSD_TOL)}
+
+    def lm_path(phase, cfg_, per_prefill, per_step):
+        """Serve ``cfg_`` at full width (the traffic of phase 9 at prompts
+        of PROMPT2), a flight of 2, and the wiring run; ``per_prefill`` and
+        ``per_step`` are the launches each kernel of the path must make."""
+        t0 = time.perf_counter()
+        params_ = tfm.init_params(cfg_, 0, device=dev)
+        torch.cuda.synchronize()
+        n_par = sum(p.numel() for p in params_.parameters())
+        say(f"phase {phase} {cfg_.name}: {n_par:,} parameters "
+            f"({torch.cuda.memory_allocated() / 1e9:.1f} GB on the card) "
+            f"drawn in {time.perf_counter() - t0:.1f} s")
+        batches_ = [demo_requests(cfg_, LM_BATCH, PROMPT2, seed=i,
+                                  device=dev) for i in range(LM_BATCHES)]
+        eng_ = ServingEngine(cfg_, params_, ServeConfig(
+            max_len=MAX_LEN2, decode_steps=DECODE_STEPS), device=dev)
+        wrappers = {name: entries[name][2] for name in per_prefill}
+        for fn in wrappers.values():
+            fn.launches = 0
+        stats_ = eng_.serve(batches_)
+        got = {name: fn.launches for name, fn in wrappers.items()}
+        n_pre, n_step = 2 + LM_BATCHES, 2 + LM_BATCHES * DECODE_STEPS
+        want_ = {name: per_prefill[name] * n_pre + per_step[name] * n_step
+                 for name in per_prefill}
+        if got != want_:
+            raise AssertionError(f"{cfg_.name} serve launched {got}, "
+                                 f"expected {want_}")
+        summ_ = stats_.summary()
+        say(f"phase {phase} serve: {summ_['requests']} requests (B="
+            f"{LM_BATCH}, prompt {PROMPT2}, {DECODE_STEPS} decode steps, "
+            f"max_len {MAX_LEN2}): prefill {summ_['prefill_s'] * 1e3:.1f} ms,"
+            f" decode {summ_['decode_step_s'] * 1e3:.3f} ms/step, "
+            f"{LM_BATCH / summ_['decode_step_s']:.1f} decode tokens/s, "
+            f"request p50 {summ_['p50_s'] * 1e3:.1f} ms, p99 "
+            f"{summ_['p99_s'] * 1e3:.1f} ms; first call "
+            f"{summ_['cold_s']:.2f} s, warm {summ_['warm_s']:.2f} s; "
+            f"launches {got} ({n_pre} prefills, {n_step} decode steps) "
+            f"[{card}]")
+        fl_eng = ServingEngine(cfg_, params_, ServeConfig(
+            max_len=MAX_LEN2, decode_steps=DECODE_STEPS, flight_size=2),
+            device=dev)
+        fl_eng.warmup(batches_[0])
+        flown_ = fl_eng.generate_flight(batches_[0])
+        ref_ = eng_.generate(batches_[0])
+        if flown_.tokens.shape != (LM_BATCH, DECODE_STEPS) or not (
+                flown_.tokens == ref_.tokens).all():
+            raise AssertionError(f"{cfg_.name}: the flight's tokens differ "
+                                 f"from generate's")
+        say(f"phase {phase} flight of 2: {flown_.latency_s * 1e3:.1f} ms, "
+            f"tokens equal generate's ({ref_.latency_s * 1e3:.1f} ms) "
+            f"[{card}]")
+
+        # the wiring: every kernel call of a prefill and WIRING_STEPS
+        # teacher-forced steps held to its plain version on its inputs
+        forced_ = torch.as_tensor(ref_.tokens[:, :WIRING_STEPS], device=dev)
+        calls = {name: [0, 0.0, 0.0] for name in per_prefill}
+
+        def shadowed(name):
+            _, _, kernel, plain, bar = entries[name]
+
+            def run(*args, **kw):
+                out = kernel(*args, **kw)
+                err, share = close(out, plain(*args, **kw),
+                                   f"{cfg_.name} {name}", bar)
+                rec = calls[name]
+                rec[:] = rec[0] + 1, max(rec[1], err), max(rec[2], share)
+                return out
+            return run
+
+        def logits_of(swap):
+            with contextlib.ExitStack() as swaps:
+                for name, fn in swap.items():
+                    mod, attr = entries[name][:2]
+                    swaps.enter_context(mock.patch.object(mod, attr, fn))
+                logits, cache = tfm.prefill(params_, cfg_, batches_[0],
+                                            MAX_LEN2)
+                outs = [logits.float()]
+                for i in range(WIRING_STEPS):
+                    logits, cache = tfm.decode_step(params_, cfg_, cache,
+                                                    forced_[:, i:i + 1])
+                    outs.append(logits.float())
+            out = torch.stack(outs)
+            if out.shape != (WIRING_STEPS + 1, LM_BATCH, cfg_.vocab_size) \
+                    or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{cfg_.name}: logits {out.shape} are "
+                                     f"not finite or of the wrong shape")
+            return out
+
+        kern_ = logits_of({name: shadowed(name) for name in per_prefill})
+        want_calls = {name: per_prefill[name] + WIRING_STEPS * per_step[name]
+                      for name in per_prefill}
+        if {name: rec[0] for name, rec in calls.items()} != want_calls:
+            raise AssertionError(f"{cfg_.name}: the wiring run made {calls} "
+                                 f"kernel calls, expected {want_calls}")
+        plain_ = logits_of({name: entries[name][3] for name in per_prefill})
+        diff = (kern_ - plain_).abs()
+        agree = float((greedy_sample(kern_) == greedy_sample(plain_))
+                      .float().mean())
+        say(f"phase {phase} wiring, every kernel call against its plain "
+            f"version on the model's activations: "
+            + "; ".join(f"{name} {rec[0]} calls, max abs err {rec[1]:.4g}, "
+                        f"{rec[2]:.3f} of its bar at worst"
+                        for name, rec in calls.items())
+            + f"; logits kernels vs plain: max {float(diff.max()):.4g}, rms "
+            f"{float(diff.square().mean().sqrt()):.4g}, greedy tokens agree "
+            f"{agree:.3f} [{card}]")
+        del params_, eng_, fl_eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(summ_, decode_tokens_per_s=LM_BATCH
+                    / summ_["decode_step_s"], launches=got, params=n_par,
+                    flight_s=flown_.latency_s, wiring_calls=calls,
+                    wiring_logits_max_abs=float(diff.max()),
+                    greedy_agreement=agree)
+
+    n_moe = mcfg.num_layers
+    results["moe_serve"] = lm_path(
+        12, mcfg,
+        {"expert_matmul": 3 * n_moe, "flash_attention": n_moe,
+         "decode_attention": 0},
+        {"expert_matmul": 3 * n_moe, "flash_attention": 0,
+         "decode_attention": n_moe})
+    n_shared = hcfg.num_layers // hcfg.hybrid_attn_every
+    results["hybrid_serve"] = lm_path(
+        13, hcfg,
+        {"ssd_scan": hcfg.num_layers, "flash_attention": n_shared,
+         "decode_attention": 0},
+        {"ssd_scan": 0, "flash_attention": 0, "decode_attention": n_shared})
+    # the kernel's time, bound, plain and library time per launch, averaged
+    # over the MoE path's launches (prefill and decode shapes as served)
+    n_pre2, n_step2 = 2 + LM_BATCHES, 2 + LM_BATCHES * DECODE_STEPS
+
+    def k5_mean(key, rows=None):
+        weight = {cap_prefill: n_pre2, cap_decode: n_step2}
+        rows = k5["rows"] if rows is None else rows
+        tot = sum(weight[r["C"]] * r["per_forward"] for r in k5["rows"])
+        return sum(weight[r["C"]] * r["per_forward"] * r[key]
+                   for r in rows) / tot
+
+    # the bound of the launches that weigh most in the mean
+    k5_bound_by = max(("bytes", "operations"), key=lambda kind: k5_mean(
+        "bound_ms", [r for r in k5["rows"] if r["bound_by"] == kind]))
+
+    # ---- 14. kernels line --------------------------------------------------
     kernels = [
         {"name": "queue_booking", "route": "cuda",
          "source": "src/repro_torch/csrc/queue_booking.cu",
@@ -726,8 +999,27 @@ def main() -> int:
          "library_call": "scaled_dot_product_attention with a kv_pos "
                          "mask, GQA; it has no logit cap, so it and "
                          "ms_like_library are at cap 0"},
+        {"name": "expert_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/expert_matmul.cu",
+         "replaces": "src/repro/kernels/moe_gmm/kernel.py:40",
+         "launches": results["moe_serve"]["launches"]["expert_matmul"],
+         "max_abs_err": k5["err"], "ms": k5_mean("ms"),
+         "plain_ms": k5_mean("plain_ms"), "bound_ms": k5_mean("bound_ms"),
+         "bound_by": k5_bound_by, "library_ms": k5_mean("bmm_ms"),
+         "library_call": "torch.bmm; every time is the mean per launch over "
+                         "the MoE path's served launches (prefill C=2048, "
+                         "bound by operations, and decode C=4, by bytes)",
+         "shapes": k5["rows"]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/kernel.py:72",
+         "launches": results["hybrid_serve"]["launches"]["ssd_scan"],
+         "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms,
+         "bound_ms": k6_bound, "bound_by": "operations",
+         "library_ms": None},
     ]
     results["kernels"] = kernels
+    results["expert_matmul"] = k5
     results["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,0 +1,169 @@
+"""The Mamba2 SSD (state-space duality) scan: the CUDA kernel's wrapper
+and its plain PyTorch version.
+
+Replaces the Pallas kernel ``repro/kernels/ssd_scan/kernel.py::
+ssd_scan``.  x ``[b, s, h, p]``, dt ``[b, s, h]`` (after the softplus), A
+``[h]`` (negative), B and C ``[b, s, g, n]`` with ``h % g == 0``, all
+float32; head ``i`` reads group ``i // (h // g)``.  Per step t of head i
+the state ``[p, n]`` is ``S_t = exp(dt_t A) S_{t-1} + (dt_t x_t) B_t^T``
+and ``y_t = S_t C_t``; returns y ``[b, s, h, p]`` and the final state
+``[b, h, p, n]``, float32.
+
+:func:`ssd_plain` is the reference's ``ssd_chunked``
+(``repro/models/mamba2.py``) in PyTorch: every chunk's work as batched
+matrix products, the inter-chunk recurrence as an associative scan in the
+reference's bracketing.  :func:`ssd` launches the kernel for CUDA tensors
+(one block per (batch, head) walking the sequence in order; see the note
+in ``csrc/ssd_scan.cu``) and runs :func:`ssd_plain` only for CPU tensors.
+The two sum in other orders: they agree to float32 rounding.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from repro_torch.kernels._build import library
+from repro_torch.sim.scan_core import associative_scan
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib():
+    lib = library("ssd_scan")
+    lib.ssd_scan_launch.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    lib.ssd_scan_launch.restype = _I
+    lib.ssd_scan_max_dim.restype = _I
+    return lib
+
+
+def segsum(a):
+    """Stable segment sum: ``out[..., i, j] = sum a[..., j+1..i]``, -inf
+    for ``j > i``.  a: [..., Q] -> [..., Q, Q]."""
+    q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    d = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=a.device).tril()
+    return torch.where(mask, d, float("-inf"))
+
+
+def _chunk_limit(s: int, chunk: int) -> int:
+    q = min(chunk, s)
+    if q < 1 or s % q:
+        raise ValueError(f"the sequence length {s} must be a multiple of "
+                         f"the chunk {q}")
+    return q
+
+
+def ssd_plain(x, dt, A, B, C, *, chunk: int):
+    """The plain PyTorch version: the reference's ``ssd_chunked``."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    q = _chunk_limit(s, chunk)
+    nc = s // q
+    rep = h // g
+
+    xb = x.reshape(b, nc, q, h, p)
+    dtb = dt.reshape(b, nc, q, h)
+    Bb = torch.repeat_interleave(B.reshape(b, nc, q, g, n), rep, dim=3)
+    Cb = torch.repeat_interleave(C.reshape(b, nc, q, g, n), rep, dim=3)
+
+    a = dtb * A[None, None, None, :]                          # log-decay
+    a_hc = a.permute(0, 1, 3, 2)                              # [b,nc,h,q]
+    L = torch.exp(segsum(a_hc))                               # [b,nc,h,q,q]
+
+    # intra-chunk, batched over all chunks
+    cb = torch.einsum("bcqhn,bckhn->bchqk", Cb, Bb)
+    dtx = xb * dtb[..., None]                                 # [b,nc,q,h,p]
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", cb * L, dtx)
+
+    # chunk states
+    cum = torch.cumsum(a_hc, dim=-1)                          # [b,nc,h,q]
+    decay_to_end = torch.exp(cum[..., -1:] - cum)
+    states = torch.einsum("bcqhn,bchq,bcqhp->bchpn", Bb, decay_to_end, dtx)
+
+    # inter-chunk recurrence h_c = h_{c-1} exp(sum a_c) + states_c
+    chunk_decay = torch.exp(cum[..., -1])                     # [b,nc,h]
+
+    def combine(left, right):
+        dl, sl = left
+        dr, sr = right
+        return dl * dr, sl * dr[..., None, None] + sr
+
+    _, st_all = associative_scan(combine, (chunk_decay, states), dim=1)
+    st_prev = torch.cat([torch.zeros_like(st_all[:, :1]), st_all[:, :-1]],
+                        dim=1)
+
+    decay_in = torch.exp(cum)
+    y_inter = torch.einsum("bcqhn,bchq,bchpn->bcqhp", Cb, decay_in, st_prev)
+
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    return y, st_all[:, -1]
+
+
+def _check(x, dt, A, B, C):
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 4 \
+            or C.shape != B.shape:
+        raise ValueError(
+            f"x must be [b, s, h, p], dt [b, s, h], A [h], B and C [b, s, "
+            f"g, n]; got {tuple(x.shape)}, {tuple(dt.shape)}, "
+            f"{tuple(A.shape)}, {tuple(B.shape)}, {tuple(C.shape)}")
+    b, s, h, _ = x.shape
+    if dt.shape != (b, s, h) or A.shape != (h,) or B.shape[:2] != (b, s) \
+            or h % B.shape[2]:
+        raise ValueError(
+            f"shapes do not match: x {tuple(x.shape)}, dt "
+            f"{tuple(dt.shape)}, A {tuple(A.shape)}, B {tuple(B.shape)}")
+    for name, t in (("dt", dt), ("A", A), ("B", B), ("C", C)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 256):
+    """The SSD scan over a whole sequence; returns (y, final_state).
+
+    CUDA tensors launch the kernel (float32, contiguous, p and n
+    multiples of 16 up to ``ssd_scan_max_dim``); CPU tensors run
+    :func:`ssd_plain`.  As in the reference, the sequence length must be a
+    multiple of ``min(chunk, s)``; the kernel's own tiling does not depend
+    on it.
+    """
+    _check(x, dt, A, B, C)
+    if x.device.type == "cpu":
+        return ssd_plain(x, dt, A, B, C, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd runs on cuda or cpu, not {x.device}")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    _chunk_limit(s, chunk)
+    lib = _lib()
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"the kernel takes float32, {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous; strides "
+                             f"{t.stride()}")
+    top = lib.ssd_scan_max_dim()
+    if not (0 < p <= top and 0 < n <= top and p % 16 == 0 and n % 16 == 0):
+        raise ValueError(f"the kernel takes p and n multiples of 16 up to "
+                         f"{top}, got p={p}, n={n}")
+    y = torch.empty_like(x)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y, state.zero_()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, p, g, n,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+    with _count_lock:            # flight members launch from threads
+        ssd.launches += 1
+    return y, state
+
+
+#: kernel launches since the count was last set to 0
+ssd.launches = 0
+_count_lock = threading.Lock()

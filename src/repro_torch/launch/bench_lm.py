@@ -3,6 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.bench_lm --arch gemma2-9b \
         --batch 2 --prompt-len 4608 --decode-steps 8 \
         --out bench_lm.json
+    PYTHONPATH=src python -m repro_torch.launch.bench_lm \
+        --arch granite-moe-3b-a800m --prompt-len 4096
+    PYTHONPATH=src python -m repro_torch.launch.bench_lm \
+        --arch zamba2-1.2b --prompt-len 4096
+
+Any ported family runs (dense, MoE, SSM, hybrid); a Mamba2 model's prompt
+must be a multiple of its SSD chunk (256) or shorter than it.
 
 Draws the model's weights (seed 0) on the card, warms up one prefill and
 one decode step, then times ``--reps`` prefills and ``--decode-steps``

@@ -4,14 +4,22 @@ or the live streaming Raptor scheduler service.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
         --requests 4 --prompt-len 512 --decode-steps 32 --flight 2
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --prompt-len 4096 --decode-steps 32
+
     PYTHONPATH=src python -m repro_torch.launch.serve --mode scheduler \
         --workload keygen --load high --jobs 4096 --arrival mmpp
 
 Runs on the CUDA card unless ``--device cpu`` is given (with
 ``--reduced`` for a model small enough for the CPU).  Generation runs the
-dense family (prefill attention through the ``flash_attention`` kernel,
-decode attention through ``decode_attention``); other families raise
-``NotImplementedError`` naming their ROADMAP item.  In scheduler mode
+dense, MoE, SSM and hybrid families (``--arch`` gemma-2b, gemma2-9b,
+gemma3-27b, phi3-mini-3.8b, granite-moe-3b-a800m,
+llama4-maverick-400b-a17b, mamba2-1.3b, zamba2-1.2b): prefill attention
+through the ``flash_attention`` kernel, decode attention through
+``decode_attention``, expert MLPs through ``expert_matmul``, prefill
+Mamba2 scans through ``ssd_scan`` (a Mamba2 model's prompt must be a
+multiple of its SSD chunk, 256, or shorter); the VLM and audio families
+raise ``NotImplementedError`` naming their ROADMAP item.  In scheduler mode
 ``--scan logdepth --summary-backend kernel`` books through the
 ``maxplus_scan`` kernel.
 """

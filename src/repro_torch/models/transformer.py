@@ -1,26 +1,34 @@
-"""The dense-family LM of the port: parameters, cache, prefill and decode.
+"""The LM of the port: parameters, cache, prefill and decode.
 
-The port of ``repro/models/transformer.py`` for ``family == "dense"``
-(gemma-2b, gemma2-9b, gemma3-27b, phi3-mini): GQA attention with RoPE,
-global or local (sliding-window) layers, attention and final logit caps,
-a SwiGLU or GeGLU MLP, RMS norms.  The parameter pytree keeps the
-reference's names and orientation (``x @ wq`` with ``wq [d, hq*hd]``) as a
-module, :class:`ParamTree`: ``embed``, ``final_norm``, ``lm_head`` (untied
-heads only), ``layers.{i}.attn.{wq,wk,wv,wo}``,
-``layers.{i}.mlp.{w_gate,w_up,w_down}``, ``layers.{i}.ln1``, ``ln2``.
+The port of ``repro/models/transformer.py`` for the dense family
+(gemma-2b, gemma2-9b, gemma3-27b, phi3-mini), the MoE family
+(granite-moe-3b-a800m, llama4-maverick), the SSM family (mamba2-1.3b) and
+the hybrid family (zamba2-1.2b): GQA attention with RoPE, global or local
+(sliding-window) layers, attention and final logit caps, a SwiGLU or
+GeGLU MLP or a Mixture-of-Experts block, Mamba2 layers and zamba2's one
+shared attention+MLP block applied after every ``hybrid_attn_every``-th
+layer, RMS norms.  The parameter pytree keeps the reference's names and
+orientation (``x @ wq`` with ``wq [d, hq*hd]``) as a module,
+:class:`ParamTree`: ``embed``, ``final_norm``, ``lm_head`` (untied heads
+only), ``layers.{i}.attn.{wq,wk,wv,wo}``, ``layers.{i}.mlp.{w_gate,w_up,
+w_down}`` or ``layers.{i}.moe.{router,w_gate,w_up,w_down[,shared]}``,
+``layers.{i}.ssm.*`` (Mamba2 layers), ``layers.{i}.ln1``, ``ln2``,
+``shared_block.*`` (hybrid).
 
-Prefill attention goes through the ``flash_attention`` kernel and decode
-attention through ``decode_attention``.  The decode cache is a dict
-``{"index": int, "layer_{i}": {"k": [B, C, Hkv, hd], "v": ...}}``; unlike
-the reference's functional update, prefill and :func:`decode_step` write
-it IN PLACE (a step would otherwise copy the whole cache), so a caller
-that decodes twice from one prefill clones it first
-(:func:`clone_cache`).
+Prefill attention goes through the ``flash_attention`` kernel, decode
+attention through ``decode_attention``, every expert MLP product through
+``expert_matmul`` and every prefill Mamba2 scan through ``ssd_scan``.
+The decode cache is a dict ``{"index": int, "layer_{i}": {"k": [B, C, Hkv,
+hd], "v": ...} or a Mamba2 layer's {"conv_x", "conv_B", "conv_C",
+"state"}, "shared_{j}": {"k", "v"}}``; unlike the reference's functional
+update, prefill and :func:`decode_step` write it IN PLACE (a step would
+otherwise copy the whole cache), so a caller that decodes twice from one
+prefill clones it first (:func:`clone_cache`).
 
 What this slice leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: the MoE, SSM, hybrid, VLM (M-RoPE) and encoder-decoder
-families, ``pad_heads``, the sharding hooks (``constrain``, ``ep``) and
-training (``loss_fn``).
+ROADMAP item: the VLM (M-RoPE) and encoder-decoder families,
+``pad_heads``, the sharding hooks (``constrain``, ``ep``) and training
+(``loss_fn``).
 """
 from __future__ import annotations
 
@@ -33,17 +41,15 @@ from torch import nn
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import gqa_decode
+from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (attention, mlp_block, rms_norm,
                                        rope_tables, rotate, softcap)
+from repro_torch.models.moe import init_moe_params, moe_mlp
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _LEFT_OUT = {
-    "moe": "ROADMAP.md §1 item 14 (the MoE serve slice, kernel K5)",
-    "ssm": "ROADMAP.md §1 item 15 (the Mamba2/hybrid serve slice, kernel "
-           "K6)",
-    "hybrid": "ROADMAP.md §1 item 15 (the Mamba2/hybrid serve slice, "
-              "kernel K6)",
     "vlm": "ROADMAP.md §1 item 16 (the VLM slice: M-RoPE, embedding "
            "inputs)",
     "audio": "ROADMAP.md §1 item 17 (the encoder-decoder slice)",
@@ -55,15 +61,11 @@ _LEFT_OUT = {
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for a config
-    outside this slice (the dense family)."""
-    if cfg.family != "dense":
+    outside the ported families (dense, MoE, SSM, hybrid)."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
             f"see {_LEFT_OUT.get(cfg.family, _LEFT_OUT['training'])}")
-    if cfg.moe is not None or cfg.ssm is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE/SSM layers are not ported yet; see "
-            f"{_LEFT_OUT['moe' if cfg.moe is not None else 'ssm']}")
     if cfg.mrope or cfg.embedding_inputs:
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE and embedding inputs are not ported yet; "
@@ -118,10 +120,11 @@ class ParamTree(nn.Module):
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
                 generator: torch.Generator | None = None) -> ParamTree:
     """Random parameters as the reference draws them: every matrix
-    N(0, 0.02) in the model dtype, every norm scale 0 (float32), from a
-    seeded ``torch.Generator`` on ``device`` (the card unless given).  The
-    numbers differ from the reference's threefry draws; the tests share
-    weights through :func:`params_from_numpy` instead."""
+    N(0, 0.02) in the model dtype, every norm scale 0 (float32), the MoE
+    router in float32, the Mamba2 constants as the reference sets them,
+    from a seeded ``torch.Generator`` on ``device`` (the card unless
+    given).  The numbers differ from the reference's threefry draws; the
+    tests share weights through :func:`params_from_numpy` instead."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
@@ -136,18 +139,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     def zeros():
         return torch.zeros(d, dtype=torch.float32, device=dev)
 
+    def attn():
+        return {"ln1": zeros(),
+                "attn": {"wq": normal(d, hq * hd), "wk": normal(d, hkv * hd),
+                         "wv": normal(d, hkv * hd), "wo": normal(hq * hd, d)},
+                "ln2": zeros()}
+
+    def mlp():
+        return {"w_gate": normal(d, cfg.d_ff), "w_up": normal(d, cfg.d_ff),
+                "w_down": normal(cfg.d_ff, d)}
+
+    def block(i):
+        if cfg.layer_kind(i) == "ssm":
+            return {"ln1": zeros(),
+                    "ssm": m2.init_mamba2_params(d, cfg.ssm, dt,
+                                                 generator=gen, device=dev)}
+        if cfg.is_moe_layer(i):
+            return dict(attn(), moe=init_moe_params(
+                d, cfg.moe, dt, generator=gen, device=dev))
+        return dict(attn(), mlp=mlp())
+
     tree: Dict[str, Any] = {"embed": normal(cfg.vocab_size, d),
                             "final_norm": zeros()}
     if not cfg.tie_embeddings:
         tree["lm_head"] = normal(d, cfg.vocab_size)
-    tree["layers"] = [
-        {"ln1": zeros(),
-         "attn": {"wq": normal(d, hq * hd), "wk": normal(d, hkv * hd),
-                  "wv": normal(d, hkv * hd), "wo": normal(hq * hd, d)},
-         "ln2": zeros(),
-         "mlp": {"w_gate": normal(d, cfg.d_ff), "w_up": normal(d, cfg.d_ff),
-                 "w_down": normal(cfg.d_ff, d)}}
-        for _ in range(cfg.num_layers)]
+    tree["layers"] = [block(i) for i in range(cfg.num_layers)]
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        tree["shared_block"] = dict(attn(), mlp=mlp())
     return ParamTree(tree)
 
 
@@ -272,27 +290,58 @@ def attention_block(x, p, cfg: ModelConfig, *, kind: str, mode: str,
 
 def _block_apply(x, p, cfg: ModelConfig, i: int, *, mode, rope,
                  cache=None):
+    """One layer of the stack; returns (x, cache, aux loss).  The MoE
+    layers' aux loss is a training term (``loss_fn``, not ported yet): the
+    serving stack does not compute it and returns 0."""
+    kind = cfg.layer_kind(i)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    y, cache = attention_block(h, p["attn"], cfg, kind=cfg.layer_kind(i),
-                               mode=mode, rope=rope, cache=cache)
+    if kind == "ssm":
+        y, cache = m2.mamba2_block(h, p["ssm"], cfg.ssm, mode=mode,
+                                   cache=cache)
+        return x + y, cache, 0.0
+    y, cache = attention_block(h, p["attn"], cfg, kind=kind, mode=mode,
+                               rope=rope, cache=cache)
     x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    y = mlp_block(h, p["mlp"], cfg.mlp_variant)
+    if "moe" in p:
+        y, _ = moe_mlp(h, p["moe"], cfg.moe, cfg.mlp_variant)
+    else:
+        y = mlp_block(h, p["mlp"], cfg.mlp_variant)
     return x + y, cache, 0.0
+
+
+def _shared_block_apply(x, p, cfg: ModelConfig, *, mode, rope, cache):
+    """zamba2's shared attention+MLP block (global attention)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, cache = attention_block(h, p["attn"], cfg, kind="attn", mode=mode,
+                               rope=rope, cache=cache)
+    x = x + y
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_block(h, p["mlp"], cfg.mlp_variant), cache
 
 
 def apply_stack(params, cfg: ModelConfig, x, *, mode, positions,
                 caches=None):
-    """x: [B, S, D] embeddings; positions: [B, S].  Returns (hidden,
-    new_caches, aux_loss); the dense family's aux loss is 0."""
-    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    """x: [B, S, D] embeddings; positions: [B, S] (None for an
+    attention-free stack).  Returns (hidden, new_caches, aux_loss); the
+    aux loss is 0 here (see :func:`_block_apply`)."""
+    rope = (None if positions is None else
+            rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta))
     new_caches: Dict[str, Any] = {}
+    every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
     for i in range(cfg.num_layers):
         c = caches.get(f"layer_{i}") if caches else None
         x, c, _ = _block_apply(x, params["layers"][i], cfg, i, mode=mode,
                                rope=rope, cache=c)
         if c is not None:
             new_caches[f"layer_{i}"] = c
+        if every and (i + 1) % every == 0:
+            name = f"shared_{(i + 1) // every - 1}"
+            sc = caches.get(name) if caches else None
+            x, sc = _shared_block_apply(x, params["shared_block"], cfg,
+                                        mode=mode, rope=rope, cache=sc)
+            if sc is not None:
+                new_caches[name] = sc
     return x, new_caches, 0.0
 
 
@@ -320,20 +369,32 @@ def loss_fn(*args, **kwargs):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> Dict[str, Any]:
-    """Preallocated decode cache (all zeros): a global layer holds
-    ``max_len`` slots, a local layer ``min(window, max_len)``."""
+    """Preallocated decode cache (all zeros): a global attention layer
+    holds ``max_len`` slots, a local layer ``min(window, max_len)``, a
+    Mamba2 layer its conv tails and state, each of the hybrid's shared
+    block applications ``max_len`` slots."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = DTYPES[cfg.dtype]
     hd = cfg.resolved_head_dim
+
+    def kv(c_len):
+        shape = (batch, c_len, cfg.num_kv_heads, hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
     caches: Dict[str, Any] = {"index": 0}
     for i in range(cfg.num_layers):
-        c_len = (min(cfg.window_size, max_len)
-                 if cfg.layer_kind(i) == "local_attn" else max_len)
-        shape = (batch, c_len, cfg.num_kv_heads, hd)
-        caches[f"layer_{i}"] = {
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+        kind = cfg.layer_kind(i)
+        if kind == "ssm":
+            caches[f"layer_{i}"] = m2.init_ssm_cache(
+                batch, cfg.d_model, cfg.ssm, dt, device=dev)
+        else:
+            caches[f"layer_{i}"] = kv(min(cfg.window_size, max_len)
+                                      if kind == "local_attn" else max_len)
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        for j in range(cfg.num_layers // cfg.hybrid_attn_every):
+            caches[f"shared_{j}"] = kv(max_len)
     return caches
 
 
@@ -353,7 +414,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int, *,
     x = _embed(params, cfg, batch["tokens"])
     b, s = x.shape[0], x.shape[1]
     positions = batch.get("positions")
-    if positions is None:
+    if positions is None and not cfg.attention_free:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     caches = init_cache(cfg, b, max_len, device=x.device)
     h, new_caches, _ = apply_stack(params, cfg, x, mode="prefill",
@@ -364,31 +425,44 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int, *,
     return logits[:, 0], new_caches
 
 
+def _window(cfg: ModelConfig, name: str) -> int:
+    """The attention window of cache ``name`` (0: global)."""
+    if name.startswith("layer_") and \
+            cfg.layer_kind(int(name[6:])) == "local_attn":
+        return cfg.window_size
+    return 0
+
+
 def decode_step(params, cfg: ModelConfig, caches, tokens, *,
                 constrain=None, ep=None):
-    """One decode step.  tokens: [B, 1] int.  Writes the new keys into
-    ``caches`` in place; returns (logits [B, V], caches with index + 1)."""
+    """One decode step.  tokens: [B, 1] int.  Writes the new keys and the
+    Mamba2 states into ``caches`` in place; returns (logits [B, V], caches
+    with index + 1)."""
     check_supported(cfg)
     refuse_sharding(constrain, ep)
     x = _embed(params, cfg, tokens)
     b = x.shape[0]
     idx = int(caches["index"])
-    positions = torch.full((b, 1), idx, dtype=torch.int32, device=x.device)
+    positions = (None if cfg.attention_free else
+                 torch.full((b, 1), idx, dtype=torch.int32, device=x.device))
     # one kv_pos per (cache length, window), shared by the layers
     kv_pos: Dict[tuple, torch.Tensor] = {}
     run_caches = {}
-    for i in range(cfg.num_layers):
-        c = caches[f"layer_{i}"]
-        key = (c["k"].shape[1], cfg.window_size
-               if cfg.layer_kind(i) == "local_attn" else 0)
+    for name, c in caches.items():
+        if name == "index":
+            continue
+        if "k" not in c:                     # a Mamba2 layer's cache
+            run_caches[name] = c
+            continue
+        key = (c["k"].shape[1], _window(cfg, name))
         if key not in kv_pos:
             kv_pos[key] = decode_positions(idx, *key, device=x.device)
-        run_caches[f"layer_{i}"] = dict(c, index=idx, kv_pos=kv_pos[key])
+        run_caches[name] = dict(c, index=idx, kv_pos=kv_pos[key])
     h, new_caches, _ = apply_stack(params, cfg, x, mode="decode",
                                    positions=positions, caches=run_caches)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, h)
-    out = {name: {"k": c["k"], "v": c["v"]}
+    out = {name: {k: t for k, t in c.items() if k not in ("index", "kv_pos")}
            for name, c in new_caches.items()}
     out["index"] = idx + 1
     return logits[:, 0], out

@@ -8,8 +8,9 @@ an ActionManifest run by the Raptor engine (``core/scheduler.py``).  With
 threads, with per-member latency jitter standing in for independent
 hosts: the first finisher wins and its peers are pre-empted.  The model
 runs on ``device``, the CUDA card unless the caller asks for the CPU;
-prefill attention goes through the ``flash_attention`` kernel and decode
-attention through ``decode_attention``.  PyTorch has no jit, so
+prefill attention goes through the ``flash_attention`` kernel, decode
+attention through ``decode_attention``, expert MLPs through
+``expert_matmul`` and prefill Mamba2 scans through ``ssd_scan``.  PyTorch has no jit, so
 ``warmup`` pays the kernels' first build and load instead of a compile,
 and timed windows end with ``torch.cuda.synchronize()`` on the card.
 """

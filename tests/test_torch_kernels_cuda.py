@@ -9,8 +9,15 @@ tests' shapes and at the engine's.  The two attention kernels sum in
 another order than their plain versions, so they are held to the
 reference kernel tests' tolerances: 2e-5 in float32, 2e-2 in bfloat16,
 at those tests' shapes, at gemma2-9b's head shapes and through the model's
-``[B, S, H, D]`` strides.  The plain versions are held to the JAX reference on the CPU by
-tests/test_torch_kernels.py.  Every test here is marked ``cuda`` and
+``[B, S, H, D]`` strides.  The expert matmul is held to its plain version
+within the reference's ``tol * d`` in float32 (both sum in float32) and
+within one bfloat16 rounding in bfloat16 (both round once), at the
+reference tests' shapes, the decode's few rows per expert and the
+prefill's; the SSD scan within the reference's 2e-4, at its tests' cases,
+a sequence that ends inside a tile and zamba2's head shapes.  The plain
+versions are held to the JAX reference on the CPU by
+tests/test_torch_kernels.py, tests/test_torch_attention.py,
+tests/test_torch_moe.py and tests/test_torch_mamba2.py.  Every test here is marked ``cuda`` and
 skips where there is no card; on a GPU machine run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -24,6 +31,9 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention_plain, gqa_decode)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     attention_plain, mha)
+from repro_torch.kernels.moe_gmm.ops import (  # noqa: E402
+    expert_matmul_plain, gmm)
+from repro_torch.kernels.ssd_scan.ops import ssd, ssd_plain  # noqa: E402
 from repro_torch.kernels.maxplus_scan.ops import (  # noqa: E402
     maxplus_entries, maxplus_entries_plain)
 from repro_torch.kernels.queue_booking.ops import (  # noqa: E402
@@ -226,3 +236,103 @@ def test_decode_kernel_matches_plain_on_card(cuda, b, hq, hkv, c, d, valid,
     assert gqa_decode.launches == n0 + 1
     _close(got, decode_attention_plain(q, k, v, pos, scale=0.07,
                                        logit_cap=cap), dtype)
+
+
+# e, c, d, f: the reference's cases, decode's rows (C <= 8), ragged tiles,
+# granite-moe-3b-a800m's experts at decode and prefill
+GMM_CASES = [
+    (4, 128, 64, 128), (8, 64, 128, 64), (2, 256, 256, 128),
+    (40, 4, 1536, 512), (40, 4, 512, 1536), (3, 1, 64, 24), (5, 8, 40, 16),
+    (3, 9, 72, 136), (2, 77, 200, 264), (40, 2048, 1536, 512),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", GMM_CASES)
+def test_gmm_kernel_matches_plain_on_card(cuda, e, c, d, f, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    buf = torch.randn((e, c, d), generator=g, device=cuda).to(dtype)
+    w = torch.randn((e, d, f), generator=g, device=cuda).to(dtype)
+    n0 = gmm.launches
+    got = gmm(buf, w)
+    torch.cuda.synchronize()
+    assert gmm.launches == n0 + 1 and got.dtype == dtype
+    want = expert_matmul_plain(buf, w)
+    if dtype == torch.float32:       # tests/test_kernels_gmm.py's tol * d
+        torch.testing.assert_close(got, want, atol=1e-5 * d, rtol=1e-5)
+    else:                            # one rounding of the float32 sum
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                                   rtol=1.6e-2)
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_refuses_what_it_does_not_take(cuda):
+    buf = torch.zeros((2, 4, 12), device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gmm(buf, torch.zeros((2, 12, 8), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm(torch.zeros((2, 8, 4), device=cuda).transpose(1, 2),
+            torch.zeros((2, 8, 8), device=cuda))
+
+
+# b, s, h, p, g, n, chunk: the reference's cases, a sequence ending inside
+# a tile, two groups at larger dims, zamba2-1.2b's and mamba2-1.3b's heads
+SSD_CASES = [
+    (1, 64, 2, 16, 1, 16, 32), (2, 128, 4, 32, 1, 32, 64),
+    (1, 128, 4, 16, 2, 16, 32), (1, 256, 2, 64, 1, 64, 128),
+    (2, 96, 3, 32, 1, 48, 32), (1, 320, 8, 64, 2, 128, 64),
+    (2, 4096, 64, 64, 1, 64, 256), (1, 512, 4, 64, 1, 128, 256),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain_on_card(cuda, b, s, h, p, g, n, chunk):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((b, s, h, p), generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=cuda))
+    A = -torch.exp(torch.randn((h,), generator=gen, device=cuda) * 0.3)
+    B = torch.randn((b, s, g, n), generator=gen, device=cuda) * 0.5
+    C = torch.randn((b, s, g, n), generator=gen, device=cuda) * 0.5
+    n0 = ssd.launches
+    y, st = ssd(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == n0 + 1
+    yr, str_ = ssd_plain(x, dt, A, B, C, chunk=chunk)
+    torch.testing.assert_close(y, yr, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(st, str_, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_carries_the_state_across_tiles(cuda):
+    """Slow decay (small dt): the first tile's input still moves the last
+    tile's output, in the kernel as in the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, s, h, p, n = 1, 256, 2, 16, 16
+    x = torch.randn((b, s, h, p), generator=gen, device=cuda)
+    dt = torch.full((b, s, h), 0.01, device=cuda)
+    A = -torch.ones((h,), device=cuda)
+    B = torch.randn((b, s, 1, n), generator=gen, device=cuda)
+    C = torch.randn((b, s, 1, n), generator=gen, device=cuda)
+    y1, _ = ssd(x, dt, A, B, C, chunk=64)
+    x2 = x.clone()
+    x2[:, :64] = 0
+    y2, _ = ssd(x2, dt, A, B, C, chunk=64)
+    assert not torch.allclose(y1[:, 192:], y2[:, 192:])
+    torch.testing.assert_close(y2, ssd_plain(x2, dt, A, B, C, chunk=64)[0],
+                               atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 64, 2, 24), device=cuda)
+    dt = torch.zeros((1, 64, 2), device=cuda)
+    A = torch.zeros((2,), device=cuda)
+    B = torch.zeros((1, 64, 1, 16), device=cuda)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ssd(x, dt, A, B, B, chunk=64)
+    with pytest.raises(TypeError, match="float32"):
+        ssd(x[..., :16].double(), dt.double(), A.double(), B.double(),
+            B.double(), chunk=64)

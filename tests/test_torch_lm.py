@@ -3,17 +3,23 @@
 * Configs: all ten architectures (and their reduced forms) equal the
   reference field by field.
 * Model: the reduced dense configs (gemma-2b, gemma2-9b, gemma3-27b,
-  phi3-mini) share the reference's weights through ``params_from_numpy``;
-  ``prefill`` of a 16-token prompt and 10 teacher-forced ``decode_step``s
-  agree with the reference's logits and caches within 1e-4 (float32; the
-  reduced window of 8 makes the local layers' ring wrap in both).
+  phi3-mini), MoE configs (granite-moe-3b-a800m, llama4-maverick), SSM
+  config (mamba2-1.3b) and hybrid config (zamba2-1.2b) share the
+  reference's weights through ``params_from_numpy``; ``prefill`` of a
+  16-token prompt and 10 teacher-forced ``decode_step``s agree with the
+  reference's logits and caches (attention, Mamba2 conv and state) within
+  1e-4 (float32; the reduced window of 8 makes the local layers' ring wrap
+  in both).  A failure reports the smallest gap between the k-th and
+  (k+1)-th router gate the port saw: an ulp of difference there can pick
+  another expert.
 * Engine: ``ServingEngine.generate`` gives the reference's greedy tokens
-  exactly, and ``generate_flight`` the same tokens as ``generate``.
+  exactly (a dense, an MoE and a hybrid config), and ``generate_flight``
+  the same tokens as ``generate``.
 * Scheduler: the cases of tests/test_core_engine.py run against the
   port's ``Flight``, ``StateStream``, ``TaskContext`` and
   ``RaptorScheduler``.
-* Families outside the slice are refused with ``NotImplementedError``
-  naming their ROADMAP item.
+* The families not ported yet (VLM, audio) are refused with
+  ``NotImplementedError`` naming their ROADMAP item.
 """
 import dataclasses
 import inspect
@@ -35,11 +41,15 @@ from repro.serving import engine as je  # noqa: E402
 from repro_torch.configs import ARCH_NAMES, get_config, reduced_config  # noqa: E402
 from repro_torch.core import manifest as tmanifest  # noqa: E402
 from repro_torch.core import scheduler as tsched  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.serving import engine as te  # noqa: E402
 from repro_torch.serving.step import cache_shape, greedy_sample  # noqa: E402
 
 DENSE = ("gemma-2b", "gemma2-9b", "gemma3-27b", "phi3-mini-3.8b")
+MOE_SSM_HYBRID = ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
+                  "mamba2-1.3b", "zamba2-1.2b")
+PORTED = DENSE + MOE_SSM_HYBRID
 PROMPT, STEPS, BATCH = 16, 10, 2
 TOL = 1e-4
 
@@ -68,19 +78,38 @@ def _shared_model(name):
     return cfg, jparams, params
 
 
-def _assert_caches(got, want):
+def _assert_caches(got, want, msg=""):
     assert int(got["index"]) == int(want["index"])
+    assert set(got) == set(want)
     for name, c in want.items():
         if name == "index":
             continue
-        for kv in ("k", "v"):
-            np.testing.assert_allclose(_np(got[name][kv]), _np(c[kv]),
+        assert set(got[name]) == set(c), name
+        for key, t in c.items():
+            np.testing.assert_allclose(_np(got[name][key]), _np(t),
                                        atol=TOL, rtol=TOL,
-                                       err_msg=f"{name}.{kv}")
+                                       err_msg=f"{name}.{key}{msg}")
 
 
-@pytest.mark.parametrize("name", DENSE)
-def test_prefill_and_decode_match_reference(name):
+@pytest.fixture
+def gate_gap(monkeypatch):
+    """Record the smallest gap between the k-th and (k+1)-th router gate
+    of every routing the port makes (inf without MoE layers)."""
+    seen = [float("inf")]
+    route = tmoe._route
+
+    def recording(xt, router, k):
+        out = route(xt, router, k)
+        g = out[2].sort(dim=-1, descending=True).values
+        if g.shape[-1] > k:
+            seen[0] = min(seen[0], float((g[:, k - 1] - g[:, k]).min()))
+        return out
+    monkeypatch.setattr(tmoe, "_route", recording)
+    return seen
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_prefill_and_decode_match_reference(name, gate_gap):
     cfg, jparams, params = _shared_model(name)
     jcfg = j_reduced(j_get_config(name))
     rng = np.random.default_rng(11)
@@ -93,15 +122,19 @@ def test_prefill_and_decode_match_reference(name):
     jlog, jcache = jpre(jparams, jnp.asarray(prompt))
     log, cache = tt.prefill(params, cfg, {"tokens": torch.as_tensor(prompt)},
                             max_len)
-    np.testing.assert_allclose(_np(log), _np(jlog), atol=TOL, rtol=TOL)
-    _assert_caches(cache, jcache)
+
+    def msg():
+        return f"; smallest top-k gate gap {gate_gap[0]:.3g}"
+    np.testing.assert_allclose(_np(log), _np(jlog), atol=TOL, rtol=TOL,
+                               err_msg=msg())
+    _assert_caches(cache, jcache, msg())
     for i in range(STEPS):
         tok = forced[:, i:i + 1]
         jlog, jcache = jdec(jparams, jcache, jnp.asarray(tok))
         log, cache = tt.decode_step(params, cfg, cache, torch.as_tensor(tok))
         np.testing.assert_allclose(_np(log), _np(jlog), atol=TOL, rtol=TOL,
-                                   err_msg=f"decode step {i}")
-    _assert_caches(cache, jcache)
+                                   err_msg=f"decode step {i}{msg()}")
+    _assert_caches(cache, jcache, msg())
 
 
 def test_param_names_follow_the_reference_pytree():
@@ -117,6 +150,33 @@ def test_param_names_follow_the_reference_pytree():
     std = float(drawn["layers"][0]["attn"]["wq"].std())
     assert 0.015 < std < 0.025
     assert float(drawn["final_norm"].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("name", MOE_SSM_HYBRID)
+def test_moe_ssm_hybrid_param_names_follow_the_reference(name):
+    jcfg = j_reduced(j_get_config(name))
+    shapes = jax.eval_shape(lambda: jt.init_params(jcfg,
+                                                   jax.random.PRNGKey(0)))
+    flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    names = {".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                      for k in path): (tuple(v.shape), str(v.dtype))
+             for path, v in flat}
+    drawn = tt.init_params(reduced_config(get_config(name)), 0, device="cpu")
+    assert {n: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+            for n, t in drawn.state_dict().items()} == names
+
+
+def test_cache_shape_of_moe_and_hybrid():
+    shapes = cache_shape(get_config("zamba2-1.2b"), 2, 4136)
+    assert sorted(n for n in shapes if n.startswith("shared_")) == [
+        f"shared_{j}" for j in range(6)]
+    assert tuple(shapes["shared_5"]["k"].shape) == (2, 4136, 32, 64)
+    assert tuple(shapes["layer_37"]["state"].shape) == (2, 64, 64, 64)
+    assert shapes["layer_37"]["state"].dtype == torch.float32
+    assert tuple(shapes["layer_0"]["conv_x"].shape) == (2, 3, 4096)
+    assert shapes["layer_0"]["conv_x"].dtype == torch.bfloat16
+    granite = cache_shape(get_config("granite-moe-3b-a800m"), 2, 4136)
+    assert tuple(granite["layer_31"]["v"].shape) == (2, 4136, 8, 64)
 
 
 def test_cache_shape_allocates_nothing():
@@ -152,6 +212,21 @@ def test_generate_matches_reference_tokens():
                                             device="cpu"))
         np.testing.assert_array_equal(got.tokens, want)
         assert got.prefill_s > 0 and got.decode_s > 0
+
+
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "zamba2-1.2b"])
+def test_generate_matches_reference_tokens_moe_and_hybrid(name, gate_gap):
+    cfg, jparams, params = _shared_model(name)
+    jcfg = j_reduced(j_get_config(name))
+    sc = dict(max_len=PROMPT + STEPS + 4, decode_steps=STEPS)
+    want = je.ServingEngine(jcfg, jparams, je.ServeConfig(**sc)).generate(
+        je.demo_requests(jcfg, BATCH, PROMPT, seed=2)).tokens
+    got = te.ServingEngine(cfg, params, te.ServeConfig(**sc),
+                           device="cpu").generate(
+        te.demo_requests(cfg, BATCH, PROMPT, seed=2, device="cpu"))
+    np.testing.assert_array_equal(
+        got.tokens, want,
+        err_msg=f"smallest top-k gate gap {gate_gap[0]:.3g}")
 
 
 def test_generate_flight_matches_generate():
@@ -193,7 +268,7 @@ def test_core_engine_cases_on_port(case, monkeypatch):
     getattr(core_cases, case)()
 
 
-@pytest.mark.parametrize("name", [n for n in ARCH_NAMES if n not in DENSE])
+@pytest.mark.parametrize("name", [n for n in ARCH_NAMES if n not in PORTED])
 def test_other_families_name_their_roadmap_item(name):
     cfg = reduced_config(get_config(name))
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 1\d"):
