@@ -19,7 +19,8 @@ attention+MLP block of 32 heads of 64 and ff 8,192 after every 6th layer;
 prompts of 4,096).
 
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build all six kernels (one nvcc per source, in parallel), timed;
+2. build all six kernels (one nvcc per source, in parallel), timed, with
+   ptxas' register counts, and any spills or serialised wgmmas by kernel;
 3. ``queue_booking`` against its plain PyTorch version, bitwise, at the
    engine's stock shape and the reference tests' shapes, timed;
 4. ``maxplus_scan`` against its plain version, bitwise, on integer tapes
@@ -33,7 +34,9 @@ prompts of 4,096).
 7. ``flash_attention`` against its plain version at the prefill's shapes
    (bf16, B=2, 16 q / 8 kv heads, S=4608, D=256, cap 50; window 4096 and
    0) within the bf16 bar of ``TOL``, and on an f32 reference case within
-   2e-5, timed beside ``F.scaled_dot_product_attention`` at cap 0;
+   2e-5, timed beside ``F.scaled_dot_product_attention`` at cap 0; and at
+   granite-moe-3b-a800m's prefill shape (24 / 8 heads of 64, S=4096, no
+   cap) beside SDPA;
 8. ``decode_attention`` against its plain version at the decode's shapes
    (bf16, B=2, C=4648 and 4096, the model's ring positions and random
    holes) within the bf16 bar, timed beside SDPA with a mask at cap 0;
@@ -57,12 +60,13 @@ prompts of 4,096).
    expert_matmul launches (3 per layer) and 32 attention launches per
    prefill and per decode step; the flight; the wiring run with every
    expert_matmul, flash_attention and decode_attention call held to its
-   plain version on the model's activations;
+   plain version on the model's activations, and with the weights in
+   float32 the logits within 1e-3 x max |logit| of the plain versions;
 13. LM serve, zamba2-1.2b, likewise: exactly 38 ssd_scan and 6
    flash_attention launches per prefill and 6 decode_attention launches
    per decode step; the flight; every ssd_scan call of the wiring run
    within 2e-4 of its plain version, every attention call within the
-   bf16 bar;
+   bf16 bar; the float32 logits as phase 12's;
 14. one JSON line listing each kernel (launches on its path, error
    against the plain version, times, bound, library time);
 15. the last line: ``{"ok": true, "device": {...}}``.
@@ -283,11 +287,19 @@ def main() -> int:
     paths = _build.build_all()
     build_s = time.perf_counter() - t0
     for stem in sorted(paths):
-        regs = [ln.strip() for ln in _build.build_log.get(stem, "")
-                .splitlines() if "registers" in ln]
+        log = _build.build_log.get(stem, "").splitlines()
+        regs = [ln.strip() for ln in log if "registers" in ln]
         say(f"phase 2 build {stem}: {paths[stem].name} "
             f"({_build.build_seconds.get(stem, 0.0):.1f} s) "
             f"{' | '.join(regs)}")
+        # ptxas' spills and serialised wgmmas, by kernel
+        kernel = None
+        for ln in log:
+            if "Compiling entry function" in ln:
+                kernel = ln.split("'")[1]
+            elif ("spill" in ln and " 0 bytes spill stores" not in ln) \
+                    or "(C75" in ln:
+                say(f"phase 2 ptxas {stem}: {kernel}: {ln.strip()}")
     say(f"phase 2 build: {len(paths)} kernels in {build_s:.1f} s wall "
         f"[{card}]")
     results["build_s"] = build_s
@@ -495,6 +507,36 @@ def main() -> int:
     k3_ms = sum(k3["ms"].values()) / 2
     k3_plain_ms = sum(k3["plain_ms"].values()) / 2
     k3_bound = sum(k3["bound_ms"].values()) / 2
+    del q, k, v, qc, kc, vc
+    # granite-moe-3b-a800m's prefill attention (D=64, no cap, no window),
+    # where the scalar work per score weighs most, beside SDPA
+    gcfg = get_config(MOE_ARCH)
+    ghq, ghkv, ghd = (gcfg.num_heads, gcfg.num_kv_heads,
+                      gcfg.resolved_head_dim)
+    gscale = tfm._attn_scale(gcfg)
+    qkv = torch.randn((LM_BATCH, PROMPT2, ghq + 2 * ghkv, ghd), generator=gen,
+                      device=dev).to(bf16)
+    gq, gk, gv = (x.transpose(1, 2) for x in (
+        qkv[:, :, :ghq], qkv[:, :, ghq:ghq + ghkv], qkv[:, :, ghq + ghkv:]))
+    err, share = close(mha(gq, gk, gv, scale=gscale),
+                       attention_plain(gq, gk, gv, scale=gscale),
+                       f"flash_attention {MOE_ARCH}")
+    k3["err"], k3["share"] = max(k3["err"], err), max(k3["share"], share)
+    gqc, gkc, gvc = (x.contiguous() for x in (gq, gk, gv))
+    k3g = {"shape": f"{MOE_ARCH}: B={LM_BATCH}, {ghq}/{ghkv} heads, "
+                    f"S={PROMPT2}, D={ghd}, causal, no cap or window",
+           "ms": time_ms(lambda: mha(gq, gk, gv, scale=gscale), reps=10),
+           "plain_ms": time_ms(lambda: attention_plain(gq, gk, gv,
+                                                       scale=gscale), reps=2),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               gqc, gkc, gvc, is_causal=True, scale=gscale,
+               enable_gqa=True), reps=10),
+           "bound_ms": 1e3 * max(
+               4 * ghd * LM_BATCH * ghq * causal_pairs(PROMPT2, 0)
+               / BF16_OPS_PER_S,
+               2 * LM_BATCH * PROMPT2 * (2 * ghq + 2 * ghkv) * ghd
+               / HBM_BYTES_PER_S)}
+    del qkv, gq, gk, gv, gqc, gkc, gvc
     say(f"phase 7 flash_attention (bf16, B={LM_BATCH}, {hq}/{hkv} heads, "
         f"S={PROMPT}, D={hd}, cap {cap}): max abs err {k3['err']:.3g}, "
         f"{k3['share']:.3f} of the bf16 bar at worst (rms |plain| "
@@ -508,8 +550,9 @@ def main() -> int:
         + ", ".join(f"window {w}: {t:.4f}" for w, t in
                     k3["bound_ms"].items())
         + f"; at cap 0, window 0: kernel {k3_cap0_ms:.4f} ms, SDPA "
-        f"{sdpa_ms:.4f} ms [{card}]")
-    del q, k, v, qc, kc, vc
+        f"{sdpa_ms:.4f} ms; {k3g['shape']}: kernel {k3g['ms']:.4f} ms, "
+        f"plain {k3g['plain_ms']:.3f} ms, SDPA {k3g['library_ms']:.4f} ms, "
+        f"bound {k3g['bound_ms']:.4f} ms (operations) [{card}]")
 
     # ---- 8. decode_attention vs plain ----------------------------------
     idx = PROMPT + DECODE_STEPS - 12           # a step late in the decode
@@ -565,6 +608,7 @@ def main() -> int:
         + f" [{card}]")
     del qd, kd, vd, kt, vt
     results["attention_kernels"] = {"flash_attention": k3,
+                                    "flash_attention_granite": k3g,
                                     "decode_attention": k4,
                                     "flash_attention_cap0_ms": k3_cap0_ms,
                                     "sdpa_prefill_ms": sdpa_ms}
@@ -891,18 +935,19 @@ def main() -> int:
                 return out
             return run
 
-        def logits_of(swap):
+        def logits_of(swap, cfg_run=cfg_):
             with contextlib.ExitStack() as swaps:
                 for name, fn in swap.items():
                     mod, attr = entries[name][:2]
                     swaps.enter_context(mock.patch.object(mod, attr, fn))
-                logits, cache = tfm.prefill(params_, cfg_, batches_[0],
+                logits, cache = tfm.prefill(params_, cfg_run, batches_[0],
                                             MAX_LEN2)
                 outs = [logits.float()]
                 for i in range(WIRING_STEPS):
-                    logits, cache = tfm.decode_step(params_, cfg_, cache,
+                    logits, cache = tfm.decode_step(params_, cfg_run, cache,
                                                     forced_[:, i:i + 1])
                     outs.append(logits.float())
+                del cache
             out = torch.stack(outs)
             if out.shape != (WIRING_STEPS + 1, LM_BATCH, cfg_.vocab_size) \
                     or not bool(torch.isfinite(out).all()):
@@ -918,6 +963,7 @@ def main() -> int:
                                  f"kernel calls, expected {want_calls}")
         plain_ = logits_of({name: entries[name][3] for name in per_prefill})
         diff = (kern_ - plain_).abs()
+        wiring_max = float(diff.max())
         agree = float((greedy_sample(kern_) == greedy_sample(plain_))
                       .float().mean())
         say(f"phase {phase} wiring, every kernel call against its plain "
@@ -928,14 +974,39 @@ def main() -> int:
             + f"; logits kernels vs plain: max {float(diff.max()):.4g}, rms "
             f"{float(diff.square().mean().sqrt()):.4g}, greedy tokens agree "
             f"{agree:.3f} [{card}]")
-        del params_, eng_, fl_eng
+        del kern_, plain_, diff
+        # the same weights in float32: there the kernels agree with their
+        # plain versions to float32 rounding, with no bf16 rounding to
+        # flip a router's choice, so the logits are held as gemma2-9b's
+        cfg32_ = dataclasses.replace(cfg_, dtype="float32")
+        for w_ in params_.parameters():
+            w_.data = w_.data.float()
+        kern32_ = logits_of({}, cfg32_)
+        plain32_ = logits_of({name: entries[name][3] for name in per_prefill},
+                             cfg32_)
+        err32_ = float((kern32_ - plain32_).abs().max())
+        top32_ = float(plain32_.abs().max())
+        agree32_ = float((greedy_sample(kern32_) == greedy_sample(plain32_))
+                         .float().mean())
+        say(f"phase {phase} wiring float32 (prefill + {WIRING_STEPS} "
+            f"teacher-forced steps, kernels vs plain versions): max "
+            f"|dlogit| {err32_:.4g} against 1e-3 x max |logit| = "
+            f"{1e-3 * top32_:.4g}, greedy tokens agree {agree32_:.3f} "
+            f"[{card}]")
+        if not err32_ <= 1e-3 * top32_:
+            raise AssertionError(f"{cfg_.name} float32: kernels and plain "
+                                 f"versions disagree: max |dlogit| {err32_} "
+                                 f"> {1e-3 * top32_}")
+        del params_, eng_, fl_eng, kern32_, plain32_
         gc.collect()
         torch.cuda.empty_cache()
         return dict(summ_, decode_tokens_per_s=LM_BATCH
                     / summ_["decode_step_s"], launches=got, params=n_par,
                     flight_s=flown_.latency_s, wiring_calls=calls,
-                    wiring_logits_max_abs=float(diff.max()),
-                    greedy_agreement=agree)
+                    wiring_logits_max_abs=wiring_max,
+                    greedy_agreement=agree, wiring_f32_max_abs=err32_,
+                    wiring_f32_bar=1e-3 * top32_,
+                    greedy_agreement_f32=agree32_)
 
     n_moe = mcfg.num_layers
     results["moe_serve"] = lm_path(
@@ -988,7 +1059,8 @@ def main() -> int:
          "library_ms": sdpa_ms, "ms_like_library": k3_cap0_ms,
          "library_call": "scaled_dot_product_attention, causal, GQA; "
                          "it has no logit cap, so it and ms_like_library "
-                         "are at cap 0, window 0"},
+                         "are at cap 0, window 0",
+         "shapes": [k3g]},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:67",

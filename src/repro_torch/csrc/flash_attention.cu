@@ -23,27 +23,76 @@
 // What bounds it: operations.  Prefill at gemma2-9b's shapes (B=2, 16 q
 // heads, S=4608, D=256) is ~3.5e11 FLOP per layer with the causal skip,
 // 0.35 ms at the card's 989 TFLOP/s bf16; its bytes (q, k, v, out once)
-// are ~0.07 ms.  So bf16 runs both products on the tensor cores
-// (mma.sync m16n8k16, float32 accumulate), FlashAttention-2 style: four
-// warps of 16 query rows each, q, k and v tiles in shared memory (rows
-// padded by 16 bytes, so the ldmatrix fragment loads are free of bank
-// conflicts), k and v brought in by asynchronous copies (cp.async; v lands
-// while the scores are formed), the scores and the output accumulator in
-// registers, and the probabilities handed from the score fragments to the
-// second product without a trip through memory, as two bf16 terms (hi +
-// lo) so that they keep the reference's float32 precision.  float32 inputs
-// (held to 2e-5, which rules out TF32) run both products on the CUDA
-// cores: each thread owns a 4x4 block of the 64x64 score tile and a
-// 4 x D/16 block of the accumulator, tiles in shared memory as float32
-// with row stride D + 1.  wgmma, TMA and warp specialisation are later
-// work.
+// are ~0.07 ms.  p @ v runs as two bf16 products (p = hi + lo, below), so
+// the tensor cores do 1.5x the bound's work: 0.53 ms at their peak.  At
+// granite's D=64 a score carries only 192 multiply-adds of tensor-core
+// work, so there the scalar chain per score (scale, cap, mask, exp, split)
+// sets the pace as much as the products do.
 //
-// Inputs are read through strides, so the model's [B, S, H, D] layout is
-// used in place; the head dimension must be contiguous and rows 16-byte
-// aligned.  No --use_fast_math: tanhf and expf are the accurate ones.
+// bf16, FlashAttention-3 style, for Hopper:
+// - A block owns 128 query rows of one head (grid: heads fastest, then
+//   batch, then q-tiles from the last, so every head's heaviest causal
+//   tile is handed out first): two consumer warpgroups of 64 rows and a
+//   producer warpgroup whose one thread brings q once and the k and v
+//   tiles by TMA into rings of 4 stages, completion
+//   signalled on mbarriers (a k and a v barrier per stage, each released
+//   by the consumers when its product has run).  The tensor maps are 4-D
+//   (D, S, H, B) over the caller's strides, so the model's [B, S, H, D]
+//   tensors are read in place; rows past Sq or Sk arrive as zeros.
+//   setmaxnreg hands the producer's registers to the consumers (40 / 232).
+// - s = q k^T is a wgmma with both operands in shared memory (K-major,
+//   128-byte swizzle; 64-byte for D = 32 and 96).
+//   p v is a wgmma with A in registers: the score accumulator, once turned
+//   into probabilities, is already the A fragment, as two bf16 terms hi +
+//   lo (below) so that p keeps ~16 bits as the reference's float32 p @ v does (one
+//   bf16 term moved gemma2-9b's logits past the wiring bar); v is the
+//   MN-major B operand through the transpose bit, so nothing is copied.
+// - Overlap: the two warpgroups run their tiles independently, so one's
+//   softmax runs while the tensor cores work through the other's products
+//   (making them take turns issuing, FlashAttention-3's ping-pong, was
+//   slower at D = 256 and no faster at D = 64 here).  For D <= 128 a
+//   warpgroup also issues p_{j-1} v_{j-1} at the end of tile j-1 and
+//   q k_j^T at the start of tile j without waiting in between.  At D = 256 it waits for p v first, and a
+//   key tile is 32 keys (64 below): the accumulator (128 registers a
+//   thread), s and the two p terms must fit the consumers' 232 registers
+//   as contiguous ranges, and with more ptxas spilled and serialised the
+//   wgmmas.
+// - Scalar work per score, each choice with its error against the float32
+//   reference (all far inside the bf16 bar of 1e-3 + 1.6e-2 |plain|).
+//   What bounds the softmax is the MUFU pipe (ex2, rcp) and the bf16
+//   converts beside it, so each score takes at most: without a cap (scale
+//   > 0) the row max of the raw scores and p = 2^(s c - m c), c = scale
+//   log2 e, one FMA and one ex2.approx (~2 ulp relative); with a cap, x =
+//   cap log2 e (1 - 2 / (1 + 2^(2 y log2 e))), y = s scale / cap, on
+//   ex2.approx and rcp.approx, then p = 2^(x - m): the cap's absolute
+//   error is ~1e-7 cap, 5e-6 at cap 50, where tanh.approx's relative 2^-11
+//   would be ~2e-2 of a score.  p's hi term is p with its low 16 bits cut
+//   (integer ops, exact in bf16) and lo = bf16(p - hi): one convert per two
+//   scores, and hi + lo keeps p to ~2^-16.  The no-cap and the cap paths
+//   are two instantiations of the kernel, so each compiles one softmax
+//   (both in one kernel cost registers).  The masks run only on tiles
+//   that cross the diagonal, the window's edge or Sk for some row of the
+//   warpgroup; the accumulator is rescaled only when some row's max moved
+//   (x 1.0 is exact, so skipping it changes no bit).  Both warpgroups run
+//   every tile of the block, so that every wgmma is issued on a path that
+//   all threads take (ptxas serialises wgmmas issued under a branch); a
+//   tile that none of a warpgroup's rows sees gives p = 0 there, or is
+//   wiped by the next correction exp(NEG_INF - m) = 0, as in the
+//   reference.
+// float32 inputs (held to 2e-5, which rules out TF32) run both products on
+// the CUDA cores: each thread owns a 4x4 block of the 64x64 score tile and
+// a 4 x D/16 block of the accumulator, tiles in shared memory as float32
+// with row stride D + 1.
+//
+// Inputs are read through strides; the head dimension must be contiguous
+// and rows 16-byte aligned.  The float32 path uses the accurate tanhf and
+// expf.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -51,7 +100,6 @@ constexpr float NEG_INF = -2.3819763e38f;
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 256;  // float32: 16 x 16 threads, 4 rows x 4 keys
-constexpr int MMA_THREADS = 128;   // bf16: 4 warps x 16 query rows
 
 struct Params {
   const void* q;
@@ -231,254 +279,383 @@ flash_attention_f32_kernel(Params p) {
 }
 
 
-// ---- bfloat16 on the tensor cores ---------------------------------------
+// ---- bfloat16 on Hopper: wgmma, TMA, warp specialisation ---------------
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
+constexpr int W_THREADS = 384;   // 2 consumer warpgroups + 1 producer
+constexpr int W_BQ = 128;        // query rows per block, 64 per consumer
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_u32(smem)), "l"(gmem));
-}
+template <int D>
+struct Tile {
+  static constexpr int SW = D % 64 == 0 ? 128 : 64;   // swizzle = row bytes
+  static constexpr int LAYOUT = SW == 128 ? 1 : 2;    // descriptor layout
+  static constexpr int EPB = SW / 2;                  // elements per box row
+  static constexpr int NBOX = D / EPB;                // boxes along D
+  static constexpr int BKN = D == 256 ? 32 : 64;      // keys per tile
+  // p_{t-1} v_{t-1} still running while q k_t^T is issued: needs the
+  // registers of both products at once, which D = 256 does not have
+  static constexpr bool OVERLAP = D < 256;
+  static constexpr int STAGES = 4;
+  static constexpr int CHN = D % 64 == 0 ? D : 32;    // p v's N per wgmma
+  static constexpr int NCH = D / CHN;                 // p v products by N
+  static constexpr int Q_BOX = W_BQ * SW;             // bytes of a q box
+  static constexpr int KV_BOX = BKN * SW;
+  static constexpr int Q_BYTES = NBOX * Q_BOX;
+  static constexpr int KV_BYTES = NBOX * KV_BOX;
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES
+                              + 8 * (1 + 4 * STAGES);
+};
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  static_assert(N == 32 || N == 64, "key tiles are 32 or 64 keys");
+  if constexpr (N == 32) wgmma_ss_n32<TRANS_B>(d, a, b, accumulate);
+  else wgmma_ss_n64<TRANS_B>(d, a, b, accumulate);
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 32) wgmma_rs_n32<1>(d, a, b, 1);
+  else if constexpr (N == 64) wgmma_rs_n64<1>(d, a, b, 1);
+  else if constexpr (N == 128) wgmma_rs_n128<1>(d, a, b, 1);
+  else wgmma_rs_n256<1>(d, a, b, 1);
 }
 
-// four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix
-// i / 8 and receives (row i / 4, columns 2 (i % 4), +1) of each
-__device__ __forceinline__ void ldsm_x4(unsigned& r0, unsigned& r1,
-                                        unsigned& r2, unsigned& r3,
-                                        const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_u32(ptr)));
-}
-
-// the same, transposed: lane i receives (rows 2 (i % 4), +1; column i / 4)
-__device__ __forceinline__ void ldsm_x4_t(unsigned& r0, unsigned& r1,
-                                          unsigned& r2, unsigned& r3,
-                                          const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(smem_u32(ptr)));
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, unsigned a0, unsigned a1,
-                                         unsigned a2, unsigned a3,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&h);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// (a, b) as bf16 pairs hi + lo with hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi,
-                                           unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 f = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack_bf16(a - f.x, b - f.y);
+// (a, b) as bf16 pairs hi + lo: hi = x with its low 16 bits cut (exact
+// in bf16), lo = bf16(x - hi), x - hi exact in float32.  hi + lo holds x
+// to ~2^-16 relative (lo's rounding), as a rounded hi would to ~2^-17;
+// cutting takes integer ops where rounding would take a second convert,
+// and the converts share a pipe with ex2.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
+  hi = __byte_perm(ua, ub, 0x7632);
+  lo = pack_bf16(a - __uint_as_float(ua & 0xffff0000u),
+                 b - __uint_as_float(ub & 0xffff0000u));
 }
 
-// rows [row0, row0 + 64) of a [nrows, D] slice (row stride rs) into shared
-// memory (row stride LDS) as one group of async copies; rows past nrows 0
-template <int D, int LDS>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
-                                          long long rs, int row0,
-                                          int nrows) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += MMA_THREADS) {
-    const int r = i / CH;
-    const int c = (i % CH) * 8;
-    bf16* d = dst + r * LDS + c;
-    if (row0 + r < nrows)
-      cp_async16(d, src + static_cast<long long>(row0 + r) * rs + c);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+// the max over each of the two rows of a score fragment (elements i with
+// (i >> 1) & 1 = row), across the quad of lanes that shares the rows
+template <int NS>
+__device__ __forceinline__ void row_max(const float (&sc)[NS],
+                                        float (&mt)[2]) {
+  float a[4] = {sc[0], sc[1], sc[2], sc[3]};   // two chains per row
+#pragma unroll
+  for (int i = 4; i < NS; ++i) a[i & 3] = fmaxf(a[i & 3], sc[i]);
+  mt[0] = fmaxf(a[0], a[1]);
+  mt[1] = fmaxf(a[2], a[3]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
   }
-  cp_async_commit();
 }
 
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * 3 * 64 * (D + 8);
+// the causal and window masks (NEG_INF) and keys past Sk (-inf) on a
+// score fragment whose element i sits at key k0 + 8 (i >> 2) + (i & 1)
+// (k0 with the lane's column offset) and query position pos0, or pos0 + 8
+// for (i >> 1) & 1 = 1
+template <int NS>
+__device__ __forceinline__ void apply_masks(float (&sc)[NS], const Params& p,
+                                            int k0, int pos0) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int kj = k0 + (i >> 2) * 8 + (i & 1);
+    const int qp = pos0 + ((i & 2) ? 8 : 0);
+    bool ok = true;
+    if (p.causal) ok = ok && kj <= qp;
+    if (p.window) ok = ok && kj > qp - p.window;
+    const float x = ok ? sc[i] : NEG_INF;
+    sc[i] = kj < p.Sk ? x : -INFINITY;
+  }
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_attention_mma_kernel(Params p) {
-  constexpr int LDS = D + 8;   // shared row stride: 16 bytes of padding
-  constexpr int NT = BK / 8;   // key columns of the score tile, by 8
-  constexpr int ND = D / 8;    // output columns, by 8
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * LDS;
-  bf16* Vs = Ks + BK * LDS;
+// FUSED: no cap and scale > 0 (the launcher's choice), one softmax path
+// compiled per kernel, which keeps the consumers' registers down
+template <int D, bool FUSED>
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             Params p) {
+  using T = Tile<D>;
+  constexpr int BKN = T::BKN, S = T::STAGES, SW = T::SW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Ks = Qs + T::Q_BYTES;
+  unsigned char* Vs = Ks + S * T::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + S * T::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + S;
+  uint64_t* v_full = k_empty + S;
+  uint64_t* v_empty = v_full + S;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // grid (Hq, B, q-tiles), heads fastest: every head's heaviest (last)
+  // causal q-tile is handed out first, and the light ones fill the tail
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int g = h / (p.Hq / p.Hkv);
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_b + h * p.q_h;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_b + g * p.k_h;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_b + g * p.v_h;
-  bf16* o = static_cast<bf16*>(p.o) + b * p.o_b + h * p.o_h;
-
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 16;   // this warp's rows of the tile
-  const int gr = lane >> 2;                 // fragment rows gr and gr + 8
-  const int tq = lane & 3;                  // fragment columns 2 tq, +1
-  const int q0 = qt * BQ;
+  const int q0 = qt * W_BQ;
   const int off = p.Sk - p.Sq;
-
-  copy_rows<D, LDS>(Qs, q, p.q_s, q0, p.Sq);
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  float m[2] = {NEG_INF, NEG_INF};
-  float l[2] = {0.0f, 0.0f};   // this thread's part of the row sums
-
+  // the keys any row of this q-tile can see
   const int qlo = q0 + off;
-  const int qhi = min(q0 + BQ, p.Sq) - 1 + off;
+  const int qhi = min(q0 + W_BQ, p.Sq) - 1 + off;
   int kbeg = 0;
   int kend = p.Sk;
   if (p.causal) kend = min(kend, qhi + 1);
   if (p.window) kbeg = max(0, qlo - p.window + 1);
-  kbeg = (kbeg / BK) * BK;
+  kbeg = (kbeg / BKN) * BKN;
+  const int ntiles = kend > kbeg ? (kend - kbeg + BKN - 1) / BKN : 0;
 
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    __syncthreads();           // the previous tile's readers are done
-    copy_rows<D, LDS>(Ks, k, p.k_s, k0, p.Sk);
-    copy_rows<D, LDS>(Vs, v, p.v_s, k0, p.Sk);
-    cp_async_wait<1>();        // q and k have landed
-    __syncthreads();
-
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      unsigned a0, a1, a2, a3;
-      ldsm_x4(a0, a1, a2, a3,
-              Qs + (r0 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        unsigned b0, b1, b2, b3;
-        ldsm_x4(b0, b1, b2, b3,
-                Ks + (n * 8 + (lane & 7) + ((lane >> 4) << 3)) * LDS
-                    + kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[n], a0, a1, a2, a3, b0, b1);
-        mma_bf16(s[n + 1], a0, a1, a2, a3, b2, b3);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(k_full + i, 1);
+      mbar_init(v_full + i, 1);
+      mbar_init(k_empty + i, 8);   // lane 0 of each consumer warp
+      mbar_init(v_empty + i, 8);
     }
-
-    // scale, cap, mask; the row max over the quad that shares the rows
-    float mt[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qp = q0 + r0 + gr + (e >> 1) * 8 + off;
-        const int kj = k0 + n * 8 + tq * 2 + (e & 1);
-        float x = s[n][e] * p.scale;
-        if (p.cap != 0.0f) x = tanhf(x / p.cap) * p.cap;
-        bool ok = true;
-        if (p.causal) ok = ok && kj <= qp;
-        if (p.window) ok = ok && kj > qp - p.window;
-        x = ok ? x : NEG_INF;
-        x = kj < p.Sk ? x : -INFINITY;
-        s[n][e] = x;
-        mt[e >> 1] = fmaxf(mt[e >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-      const float mn = fmaxf(m[i], mt[i]);
-      corr[i] = expf(m[i] - mn);
-      m[i] = mn;
-      l[i] *= corr[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        l[e >> 1] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-    cp_async_wait<0>();        // v has landed
-    __syncthreads();
-    // acc += p v: the score fragments of keys 16 kk .. 16 kk + 15 are the
-    // A fragment of the second product.  p goes in as two bf16 terms,
-    // p = hi + lo, so the product keeps p to ~16 bits as the reference's
-    // float32 p @ v does (v is exact in bf16); one bf16 term alone would
-    // round p to 8 bits.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      unsigned hi[4], lo[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-#pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        unsigned b0, b1, b2, b3;
-        ldsm_x4_t(b0, b1, b2, b3,
-                  Vs + (kk * 16 + (lane & 15)) * LDS + n * 8
-                      + (lane >> 4) * 8);
-        mma_bf16(acc[n], hi[0], hi[1], hi[2], hi[3], b0, b1);
-        mma_bf16(acc[n + 1], hi[0], hi[1], hi[2], hi[3], b2, b3);
-        mma_bf16(acc[n], lo[0], lo[1], lo[2], lo[3], b0, b1);
-        mma_bf16(acc[n + 1], lo[0], lo[1], lo[2], lo[3], b2, b3);
-      }
-    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: q once, then k_j and v_j into the rings ----
+    regs_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
+      for (int j = 0; j < T::NBOX; ++j)
+        tma_load_4d(Qs + j * T::Q_BOX, &tq, q_full, j * T::EPB, q0, h, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % S;
+        const int r = t / S;
+        const int k0 = kbeg + t * BKN;
+        if (r > 0) mbar_wait(k_empty + s, (r - 1) & 1);
+        mbar_expect_tx(k_full + s, T::KV_BYTES);
+        for (int j = 0; j < T::NBOX; ++j)
+          tma_load_4d(Ks + s * T::KV_BYTES + j * T::KV_BOX, &tk, k_full + s,
+                      j * T::EPB, k0, g, b);
+        if (r > 0) mbar_wait(v_empty + s, (r - 1) & 1);
+        mbar_expect_tx(v_full + s, T::KV_BYTES);
+        for (int j = 0; j < T::NBOX; ++j)
+          tma_load_4d(Vs + s * T::KV_BYTES + j * T::KV_BOX, &tv, v_full + s,
+                      j * T::EPB, k0, g, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    regs_inc<232>();
+    constexpr int NS = BKN / 2;          // score accumulator per thread
+    constexpr int NP = BKN / 16;         // k16 blocks of p
+    constexpr int CHN = T::CHN, NCH = T::NCH;
+    const int lane = threadIdx.x & 31;
+    const int wtid = threadIdx.x & 127;
+    const int gr = lane >> 2;            // fragment rows gr and gr + 8
+    const int tq = lane & 3;             // fragment columns 2 tq, +1
+    const int row0 = q0 + 64 * wg + 16 * (wtid >> 5) + gr;
+    const int pos0 = row0 + off;         // key position of row0; row0 + 8
+    // the key positions of this warpgroup's first and last rows
+    const int plo = q0 + 64 * wg + off;
+    const int phi = min(q0 + 64 * wg + 64, p.Sq) - 1 + off;
+
+    const float sl2 = p.scale * LOG2E;
+    const bool capped = p.cap != 0.0f;
+    const float c1 = p.cap * LOG2E;
+    const float c3 = capped ? 2.0f * p.scale * LOG2E / p.cap : 0.0f;
+
+    float acc[NCH][CHN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int row = q0 + r0 + gr + i * 8;
-    if (row >= p.Sq) continue;
-    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+    for (int c = 0; c < NCH; ++c)
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<unsigned*>(
-          o + static_cast<long long>(row) * p.o_s + n * 8 + tq * 2) =
-          pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+      for (int i = 0; i < CHN / 2; ++i) acc[c][i] = 0.0f;
+    float sc[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = 0.0f;
+    uint32_t ph[NP][4], pl[NP][4];
+    // running max per row (raw scores when fused, else log2 units), its
+    // offset in the exponent (log2 units), and this thread's part of the
+    // row sums
+    float m[2] = {NEG_INF, NEG_INF};
+    float moff[2] = {FUSED ? 0.0f : NEG_INF, FUSED ? 0.0f : NEG_INF};
+    float l[2] = {0.0f, 0.0f};
+
+    const uint64_t q_desc = smem_desc(Qs + 64 * wg * SW, 16, 8 * SW,
+                                      T::LAYOUT);
+    const uint64_t k_desc = smem_desc(Ks, 16, 8 * SW, T::LAYOUT);
+    const uint64_t v_desc = smem_desc(Vs, T::KV_BOX, 8 * SW, T::LAYOUT);
+
+    mbar_wait(q_full, 0);
+    // Tile t: issue s = q k_t^T; wait for it (and for p_{t-1} v_{t-1},
+    // issued at the end of the previous tile); the softmax; then issue
+    // acc += p_t v_t and go on without waiting for it (with OVERLAP;
+    // else wait).  Every wgmma is issued on a path all threads take, once
+    // per tile.
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % S;
+      const uint32_t par = (t / S) & 1;
+      const int k0 = kbeg + t * BKN;
+      mbar_wait(k_full + s, par);
+      wgmma_fence();
+      {
+        // a descriptor's low bits are the start address / 16, so moving
+        // it is adding the offset / 16; each goes through a register move
+        // the compiler cannot see through, so that it forms them one at a
+        // time here instead of holding them live
+        uint64_t dq = opaque(q_desc);
+        uint64_t dk = opaque(k_desc) + (s * T::KV_BYTES >> 4);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss<BKN, 0>(sc, dq, dk, kk > 0);
+          // the next k16 step: 32 bytes on along the row, or the next box;
+          // one descriptor of each operand live at a time
+          constexpr int KS = T::EPB / 16;   // k16 steps per box row
+          const bool wrap = (kk + 1) % KS == 0;
+          dq = opaque(dq + ((wrap ? T::Q_BOX - (KS - 1) * 32 : 32) >> 4));
+          dk = opaque(dk + ((wrap ? T::KV_BOX - (KS - 1) * 32 : 32) >> 4));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) fence_regs(acc[c]);
+      fence_regs(sc);
+      if (lane == 0) {
+        mbar_arrive(k_empty + s);
+        if (T::OVERLAP && t > 0) mbar_arrive(v_empty + (t - 1) % S);
+      }
+
+      // the masks, only on a tile that crosses the diagonal, the window's
+      // edge or Sk for some row of this warpgroup
+      const bool edge = (p.causal && k0 + BKN - 1 > plo)
+                        || (p.window && k0 <= phi - p.window)
+                        || k0 + BKN > p.Sk;
+      float corr[2];
+      if constexpr (FUSED) {
+        // no cap, scale > 0: the row max of the raw scores, then
+        // p = 2^(s (scale log2 e) - m (scale log2 e)), one FMA and one
+        // ex2 a score.  A row with no visible key yet keeps offset 0, so
+        // its masked scores give p = 0 (the reference's p = 1 there is
+        // wiped by the next correction, exp(NEG_INF - m) = 0, all the
+        // same); every row has a visible key in some tile.
+        if (edge) apply_masks(sc, p, k0 + tq * 2, pos0);
+        float mt[2];
+        row_max<NS>(sc, mt);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(m[r], mt[r]);
+          const float o2 = mn == NEG_INF ? 0.0f : mn * sl2;
+          // acc and l are still 0 while no key was visible
+          corr[r] = m[r] == NEG_INF ? 0.0f : ex2(moff[r] - o2);
+          m[r] = mn;
+          moff[r] = o2;
+        }
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          sc[i] = ex2(fmaf(sc[i], sl2, -moff[(i >> 1) & 1]));
+      } else {
+        // scores in log2 units, x = tanh(s scale / cap) cap log2 e
+        if (capped) {
+#pragma unroll
+          for (int i = 0; i < NS; ++i)
+            sc[i] = c1 - 2.0f * c1 * rcp(1.0f + ex2(sc[i] * c3));
+        } else {
+#pragma unroll
+          for (int i = 0; i < NS; ++i) sc[i] *= sl2;
+        }
+        if (edge) apply_masks(sc, p, k0 + tq * 2, pos0);
+        float mt[2];
+        row_max<NS>(sc, mt);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(m[r], mt[r]);
+          corr[r] = ex2(moff[r] - mn);
+          m[r] = mn;
+          moff[r] = mn;
+        }
+#pragma unroll
+        for (int i = 0; i < NS; ++i) sc[i] = ex2(sc[i] - moff[(i >> 1) & 1]);
+      }
+      float ls[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < NS; ++i) ls[(i >> 1) & 1] += sc[i];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ls[r];
+      // a max that moved in no row of the warp leaves acc as it is
+      // (x 1.0 is exact, so skipping it changes no bit)
+      if (!__all_sync(0xffffffffu, corr[0] == 1.0f && corr[1] == 1.0f)) {
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+          for (int i = 0; i < CHN / 2; ++i) acc[c][i] *= corr[(i >> 1) & 1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1], ph[kk][j],
+                     pl[kk][j]);
+
+      // acc += p v_t as two bf16 products, hi and lo
+      mbar_wait(v_full + s, par);
+      wgmma_fence();
+      {
+        const uint64_t vd = opaque(v_desc) + (s * T::KV_BYTES >> 4);
+#pragma unroll
+        for (int kk = 0; kk < NP; ++kk) {
+#pragma unroll
+          for (int c = 0; c < NCH; ++c) {
+            const uint64_t d = vd + (((c * CHN / T::EPB) * T::KV_BOX
+                                      + kk * 16 * SW) >> 4);
+            wgmma_rs<CHN>(acc[c], ph[kk], d);
+            wgmma_rs<CHN>(acc[c], pl[kk], d);
+          }
+        }
+      }
+      wgmma_commit();
+      if constexpr (!T::OVERLAP) {
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) fence_regs(acc[c]);
+        if (lane == 0) mbar_arrive(v_empty + s);
+      }
+    }
+    if constexpr (T::OVERLAP) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) fence_regs(acc[c]);
+      if (ntiles > 0 && lane == 0) mbar_arrive(v_empty + (ntiles - 1) % S);
+    }
+
+    bf16* o = static_cast<bf16*>(p.o) + b * p.o_b + h * p.o_h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = row0 + 8 * r;
+      if (row >= p.Sq) continue;
+      const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int n = 0; n < CHN / 8; ++n)
+          *reinterpret_cast<uint32_t*>(
+              o + static_cast<long long>(row) * p.o_s + c * CHN + n * 8
+              + tq * 2) = pack_bf16(acc[c][4 * n + 2 * r] * inv,
+                                    acc[c][4 * n + 2 * r + 1] * inv);
+    }
   }
 }
 
@@ -494,15 +671,44 @@ cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// a 4-D tensor map (D, S, H, B) over a bf16 [B, H, S, D] tensor with
+// element strides (b, h, s), boxes of (EPB, rows, 1, 1)
+template <int D>
+bool head_map(CUtensorMap* map, const void* base, int B, int H, int S,
+              long long sb, long long sh, long long ss, int rows) {
+  using T = Tile<D>;
+  // a dimension of size 1 is never stepped: give it a valid stride
+  const long long big = (static_cast<long long>(S) * D + 8) * 2;
+  const uint64_t sizes[4] = {static_cast<uint64_t>(D),
+                             static_cast<uint64_t>(S > 0 ? S : 1),
+                             static_cast<uint64_t>(H),
+                             static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {
+      static_cast<uint64_t>(S > 1 ? ss * 2 : big),
+      static_cast<uint64_t>(H > 1 ? sh * 2 : big),
+      static_cast<uint64_t>(B > 1 ? sb * 2 : big)};
+  const uint32_t box[4] = {static_cast<uint32_t>(T::EPB),
+                           static_cast<uint32_t>(rows), 1, 1};
+  return make_tensor_map_bf16(map, base, 4, sizes, strides, box, T::SW)
+         == CUDA_SUCCESS;
+}
+
 template <int D>
 cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
-  const size_t bytes = mma_smem_bytes<D>();
+  using T = Tile<D>;
+  CUtensorMap tq, tk, tv;
+  if (!head_map<D>(&tq, p.q, B, p.Hq, p.Sq, p.q_b, p.q_h, p.q_s, W_BQ) ||
+      !head_map<D>(&tk, p.k, B, p.Hkv, p.Sk, p.k_b, p.k_h, p.k_s, T::BKN) ||
+      !head_map<D>(&tv, p.v, B, p.Hkv, p.Sk, p.v_b, p.v_h, p.v_s, T::BKN))
+    return cudaErrorInvalidValue;
+  const bool fused = p.cap == 0.0f && p.scale > 0.0f;
+  const auto kernel = fused ? flash_attention_wgmma_kernel<D, true>
+                            : flash_attention_wgmma_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_mma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, B);
-  flash_attention_mma_kernel<D><<<grid, MMA_THREADS, bytes, stream>>>(p);
+  const dim3 grid(p.Hq, B, (p.Sq + W_BQ - 1) / W_BQ);
+  kernel<<<grid, W_THREADS, T::SMEM, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 

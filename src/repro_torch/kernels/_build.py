@@ -4,7 +4,11 @@ Every ``*.cu`` source under ``repro_torch/csrc/`` is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library with a plain C interface, all
 ``nvcc`` processes started together, into ``build/kernels/`` at the root
 of the checkout (listed in ``.gitignore``).  A library's file name carries
-a hash of its source and flags, so an unchanged source is not rebuilt.
+a hash of its source, of every header under ``csrc/`` (``*.cuh``, which
+any source may include) and of the flags, link flags included, so an
+unchanged build is not repeated and a changed header rebuilds every
+source.  The libraries link the CUDA driver (``-lcuda``) for the tensor
+maps of the Hopper kernels' TMA copies.
 The wrappers load the libraries with ``ctypes``: pointers are passed as
 ``data_ptr()`` integers and the launch stream is PyTorch's current one.
 """
@@ -22,7 +26,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 #: per-source compiler output of the last build (ptxas register and
@@ -42,7 +46,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

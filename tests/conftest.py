@@ -9,6 +9,14 @@ the compile that crosses it dies with a segmentation fault.  After each test,
 when the process holds more than a quarter of that limit, the compiled
 executables are released; the next call of a jitted function compiles it
 again, with the same result.
+
+The suite's long tests sit together in collection order (the heavy
+property tests of ``test_queue_properties.py``), and pytest-xdist's
+``--dist load`` hands each worker a consecutive chunk of the collection and
+refills a worker late, so one worker used to get all of them.  Unless the
+run asks for another ``--maxschedchunk``, each worker is sent at most one
+test at a time beyond the two it keeps pending, so a worker that is busy
+with a long test is not handed the next long ones.
 """
 
 import gc
@@ -28,6 +36,11 @@ def _map_headroom():
     except (OSError, ValueError):
         return None
     return held, limit
+
+
+def pytest_configure(config):
+    if getattr(config.option, "maxschedchunk", 0) is None:
+        config.option.maxschedchunk = 1
 
 
 def pytest_runtest_teardown(item, nextitem):

@@ -178,6 +178,44 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, hq, hkv, sq, sk, d,
                                 logit_cap=cap), dtype)
 
 
+# sq, sk, window, cap: ragged 128-row q-tiles, Sk > Sq (the queries sit
+# at the end), windows whose edge falls inside a key tile
+EDGE_CASES = [(100, 300, 70, 30.0), (200, 200, 0, 50.0), (320, 450, 200, 0.0),
+              (200, 333, 97, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,window,cap", EDGE_CASES)
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+def test_flash_kernel_tile_edges_on_card(cuda, d, sq, sk, window, cap):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((2, 4, sq, d), generator=g, device=cuda).bfloat16()
+    k = torch.randn((2, 2, sk, d), generator=g, device=cuda).bfloat16()
+    v = torch.randn((2, 2, sk, d), generator=g, device=cuda).bfloat16()
+    n0 = mha.launches
+    got = mha(q, k, v, window=window, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert mha.launches == n0 + 1
+    _close(got, attention_plain(q, k, v, window=window, logit_cap=cap),
+           torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [200, 512])
+def test_flash_kernel_granite_heads_on_card(cuda, s):
+    """granite-moe-3b-a800m's heads (24 q / 8 kv of 64) through the model's
+    [B, S, H, D] layout."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((2, s, 40, 64), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in (x[:, :, :24], x[:, :, 24:32],
+                                            x[:, :, 32:]))
+    got = mha(q, k, v, scale=0.125)
+    want = attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                           scale=0.125)
+    _close(got, want, torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_reads_the_model_layout(cuda):
     """q, k, v as ``transpose(1, 2)`` views of [B, S, H, D] tensors (the
@@ -264,6 +302,39 @@ def test_gmm_kernel_matches_plain_on_card(cuda, e, c, d, f, dtype):
     else:                            # one rounding of the float32 sum
         torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
                                    rtol=1.6e-2)
+
+
+# e, c, d, f: decode's rows (C <= 8) with D split over a cluster of
+# blocks in parts of unequal length (D = 1304: 6 blocks of 218 rows, the
+# last 214; D = 520: 174, 174, 172)
+SPLIT_CASES = [(6, 4, 1304, 72), (3, 7, 520, 136), (2, 1, 1304, 8),
+               (4, 8, 2056, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", SPLIT_CASES)
+def test_gmm_decode_split_on_card(cuda, e, c, d, f):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    buf = torch.randn((e, c, d), generator=g, device=cuda).bfloat16()
+    w = torch.randn((e, d, f), generator=g, device=cuda).bfloat16()
+    got = gmm(buf, w)
+    torch.testing.assert_close(got.float(), expert_matmul_plain(buf, w)
+                               .float(), atol=1e-2, rtol=1.6e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 2048])
+def test_gmm_kernel_is_bitwise_repeatable(cuda, c):
+    """Two launches on the same inputs give the same bits: the partial sums
+    meet in a fixed order (no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    buf = torch.randn((40, c, 1536), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((40, 1536, 512), generator=g, device=cuda)
+         * 0.02).bfloat16()
+    first = gmm(buf, w)
+    second = gmm(buf, w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
