@@ -1,5 +1,6 @@
 // Attention of one new token over a (ring) KV cache, GQA, tanh logit cap:
-// flash-decoding with the cache split along its length.
+// the cache of each (batch, kv head) split over a thread-block cluster,
+// streamed by TMA, and merged inside the cluster.
 //
 // Replaces the Pallas kernel repro/kernels/decode_attention/kernel.py
 // (decode_attention: the cache streamed through VMEM block by block along
@@ -14,59 +15,143 @@
 //
 // What bounds it: bytes.  Each step reads the whole cache of the layer
 // once (gemma2-9b at B=2, C=4648: 76 MB of K and V, ~0.023 ms at
-// 3.35 TB/s) and does ~2 rep FLOP per byte.  A block per (batch, kv head)
-// computes all rep = Hq/Hkv query heads of its group, so each cache row is
-// read once per group; B x Hkv is only 16 blocks at that shape, so the
-// cache is also split along its length into `nsplit` chunks (about two
-// blocks per SM in all).  Each block streams its chunk in tiles of 64
-// slots: K and V tiles come into shared memory by 16-byte asynchronous
-// copies (cp.async, all of a tile in flight at once; V lands
-// while the scores are formed), then eight lanes per slot form the rep dot
-// products with a shuffle reduction, one warp per head runs the online
-// softmax over the tile, and each thread accumulates its columns of the
-// rep output rows in registers.  Each block writes (acc, m, l) of its
-// chunk; a second kernel merges the chunks:
-//   M = max_i m_i;  L = sum_i l_i exp(m_i - M);
-//   out = sum_i acc_i exp(m_i - M) / max(L, 1e-30).
+// 3.35 TB/s) and does ~2 rep FLOP per byte, far below the card's ratio of
+// operations to bytes.  So the design keeps the cache stream dense:
+// - The cache of one (batch, kv head) group is split, in whole tiles, over
+//   the blocks of a thread-block cluster (at most 8, the portable size;
+//   the wrapper picks the size from the card's occupancy so that the grid
+//   fills the SMs once).
+// - In each block one producer thread keeps a ring of STAGES tiles in
+//   flight by TMA: a tile is TK slots of K and of V (4-D tensor maps over
+//   the caller's [B, C, Hkv, D] strides, no swizzle, so a tile lands as a
+//   dense [TK][D] array) and the TK kv_pos entries beside them, all
+//   completing on one mbarrier.  The ring holds ~96 KB.
+// - The consumer warps work on the tiles that have landed, on the CUDA
+//   cores, each warp on its own share of every tile with its own online
+//   softmax, so the loop over the tiles has no block barrier: a warp waits
+//   for a tile, forms its slots' scores (eight lanes per slot, 16-byte
+//   reads of K, q in float32), updates its (m, l) with shuffles, adds p v
+//   into its lanes' columns (D / 32 each) and frees the stage with one
+//   arrive.  The warps split a tile by slots, and for wide groups (rep 8
+//   and 16, q read from shared memory at every tile) by heads too, so
+//   that a lane holds the sums of at most two heads; a single query head
+//   per kv head with tiles of 64 slots (zamba2's shared block) gets 16
+//   consumer warps, the others 8.
+// - The warps' (m, l, acc) are merged in warp order in shared memory, and
+//   the blocks of a cluster inside the launch: each writes its (acc, m, l)
+//   into rank 0's shared memory (distributed shared memory, each rank in
+//   its own slot) and leaves; rank 0 merges the ranks in rank order:
+//     M = max_i m_i;  L = sum_i l_i exp(m_i - M);
+//     out = sum_i acc_i exp(m_i - M) / max(L, 1e-30).
+//   So one launch, no workspace, no atomics, and bitwise repeatable.
+// The products stay on the CUDA cores: at ~2 rep FLOP per byte they are
+// a small part of a tile's work.  clock64 stamps of an instrumented copy
+// (not kept) showed where a block's time went while the consumers still
+// met at two block barriers per tile: the producer waited on free stages
+// for most of a block's life and the consumers seldom waited on data, so
+// the consumers set the pace; deeper rings, larger tiles and two blocks
+// to an SM (clusters of 16) did not help there, independent warps did.
 // No --use_fast_math: tanhf and expf are the accurate ones.
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+namespace cg = cooperative_groups;
+using namespace hopper;
+
 constexpr float NEG_INF = -2.3819763e38f;
-constexpr int TK = 64;         // cache slots per tile
-constexpr int THREADS = 128;   // 4 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_REP = 16;    // query heads per kv head
-constexpr int MAX_DC = 2;      // D <= 256: columns per thread
-constexpr int LPK = 8;         // lanes per cache slot in the score phase
+constexpr int MAX_REP = 16;                // query heads per kv head
+constexpr int MAX_CLUSTER = 8;             // blocks per (batch, kv head)
+constexpr int LPK = 8;                     // lanes per slot in the scores
+constexpr int RING_BYTES = 96 * 1024;      // the ring's budget
+constexpr int BAR_CONSUMERS = 1;           // named barrier of the consumers
+
+__host__ __device__ constexpr int cmin(int a, int b) {
+  return a < b ? a : b;
+}
+__host__ __device__ constexpr int cmax(int a, int b) {
+  return a > b ? a : b;
+}
+__host__ __device__ constexpr int up(int x, int a) {
+  return (x + a - 1) / a * a;
+}
+
+template <typename T> struct Elem;
+template <> struct Elem<float> {
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+template <> struct Elem<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType TMA =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+
+// the tiling of one instantiation
+template <typename T, int D, int MAXR>
+struct Cfg {
+  static constexpr int ROW = D * static_cast<int>(sizeof(T));  // bytes
+  // slots per tile: about 16 KB of K (and of V) per stage
+  static constexpr int TK = ROW >= 1024 ? 16 : ROW >= 512 ? 32 : 64;
+  static constexpr int TILE = TK * ROW;
+  static constexpr int POS = up(TK * 4, 128);           // kv_pos of a tile
+  static constexpr int STAGE = 2 * TILE + POS;
+  static constexpr int TX = 2 * TILE + TK * 4;          // TMA bytes a stage
+  static constexpr int STAGES = cmin(8, cmax(3, RING_BYTES / STAGE));
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  // q held in registers across the tiles (narrow groups), or read from
+  // shared memory at every tile (wide ones, where it would crowd out the
+  // sums); two blocks to an SM where it is held
+  static constexpr bool QREG = (MAXR <= 2 && MAXR * D <= 512)
+                               || MAXR * D <= 256;
+  // consumer warps (and one producer warp): 8, or 16 for a single query
+  // head per kv head with tiles of 64 slots (zamba2's shared block), where
+  // more warps keep more of the stream moving
+  static constexpr int CWARPS = QREG && MAXR == 1 && TK == 64 ? 16 : 8;
+  static constexpr int CTHREADS = CWARPS * 32;
+  static constexpr int THREADS = CTHREADS + 32;
+  // the warps split a tile's heads WH ways and its slots WS ways: narrow
+  // groups by slots alone, wide ones by heads too, so that a lane holds
+  // the sums of at most HPW heads
+  static constexpr int WH = QREG ? 1 : cmin(MAXR, 8);
+  static constexpr int HPW = MAXR / WH;                 // heads per warp
+  static constexpr int WS = CWARPS / WH;
+  static constexpr int SPW = TK / WS;                   // slots per warp
+  static constexpr int PASSES = (SPW + 32 / LPK - 1) / (32 / LPK);
+  static constexpr int CPL = D / 32;                    // p v: columns a lane
+  static constexpr int RED = (MAXR * D + CTHREADS - 1) / CTHREADS;
+  static constexpr int MINB = QREG && CWARPS == 8 ? 2 : 1;  // blocks an SM
+  static constexpr int QD = up(D, LPK * VEC);           // q's row stride
+  // the ring, later the warps' partial sums, and in rank 0 the parts of
+  // every rank of the cluster, one after the other in the same bytes
+  static constexpr int REGION = up(cmax(STAGES * STAGE,
+      cmax(WS * MAXR * D * 4, MAX_CLUSTER * MAXR * (D + 2) * 4)), 1024);
+  static constexpr int QS = MAXR * QD * 4;              // q, float32
+  static constexpr int WARPS8 = cmax(WS, MAX_CLUSTER);
+  static constexpr int SMALL = (2 * MAXR + 2 * WARPS8 * MAXR) * 4;
+  static constexpr int BARS = 2 * STAGES * 8;
+  static constexpr int SMEM = 1024 + REGION + QS + up(SMALL, 16) + BARS;
+};
 
 struct Params {
   const void* q;
-  const void* k;
-  const void* v;
-  const int* kv_pos;
-  float* ws;                   // [B*Hkv, nsplit, rep, D + 2]
   void* o;
-  int Hq, Hkv, C, D, nsplit, tiles_per_split;
-  long long q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h;
+  int Hq, Hkv, C, per, tiles;
+  long long q_b, q_h, o_b, o_h;
   float scale, cap;
 };
 
-template <typename T> struct Vec;
-template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-// one 16-byte load, widened to float
-__device__ __forceinline__ void load16(const float* p, float* out) {
+__device__ __forceinline__ void ld_f4(const float* p, float* out) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+}
+// one 16-byte chunk of a cache row, widened to float
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  ld_f4(p, out);
 }
 __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   const uint4 x = *reinterpret_cast<const uint4*>(p);
@@ -78,290 +163,524 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
     out[2 * i + 1] = f.y;
   }
 }
+// four neighbouring columns of a cache row
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  ld_f4(p, out);
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+// CPL neighbouring columns of a cache row (the lane's share of p v)
+template <int CPL>
+__device__ __forceinline__ void load_cols(const float* p, float* out) {
+  if constexpr (CPL % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < CPL; i += 4) ld_f4(p + i, out + i);
+  } else if constexpr (CPL == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x; out[1] = x.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) out[i] = p[i];
+  }
+}
+template <int CPL>
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
+                                          float* out) {
+  if constexpr (CPL % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < CPL; i += 8) load16(p + i, out + i);
+  } else if constexpr (CPL == 4) {
+    load4(p, out);
+  } else if constexpr (CPL == 2) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = f.x; out[1] = f.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) out[i] = __bfloat162float(p[i]);
+  }
+}
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// asynchronous 16-byte copy from device to shared memory (no register
-// staging, so all of a tile's copies are in flight at once)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+// ``x`` through a register move the compiler cannot see through, so
+// that what is read at an address derived from it is not hoisted out of
+// a loop
+__device__ __forceinline__ int opaque32(int x) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
 }
 
-// dst[r][0:D] = src row (row0 + r) for r < n, as one group of async copies
-template <typename T>
-__device__ __forceinline__ void copy_tile(T* dst, const T* src, long long rs,
-                                          int row0, int n, int D) {
-  constexpr int V = Vec<T>::N;
-  const int ch = D / V;
-  for (int i = threadIdx.x; i < n * ch; i += THREADS) {
-    const int r = i / ch;
-    const int c = (i % ch) * V;
-    cp_async16(dst + r * D + c,
-               src + static_cast<long long>(row0 + r) * rs + c);
-  }
-  cp_async_commit();
+// where q[d] lives in shared memory: lane ``sub`` of a slot's eight reads
+// the VEC values d = pass LPK VEC + sub VEC + e, and each 4-value half of
+// them is stored so that eight lanes read 128 contiguous bytes
+template <int VEC>
+__device__ __forceinline__ int q_index(int d) {
+  const int pass = d / (LPK * VEC);
+  const int sub = (d / VEC) % LPK;
+  const int e = d % VEC;
+  return pass * LPK * VEC + (e / 4) * LPK * 4 + sub * 4 + e % 4;
 }
 
-template <typename T>
-size_t partial_smem(int rep, int D) {
-  return 2 * sizeof(T) * TK * D + sizeof(int) * TK
-         + sizeof(float) * (rep * D + rep * TK + 3 * rep);
-}
+// grid (cluster, B * Hkv), cluster (cluster, 1, 1): rank r of the cluster
+// owns tiles [r per, (r + 1) per) of its group's cache.
+template <typename T, int D, int MAXR>
+__global__ void __launch_bounds__(Cfg<T, D, MAXR>::THREADS,
+                                     Cfg<T, D, MAXR>::MINB)
+decode_attention_kernel(const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tp, Params p) {
+  using K = Cfg<T, D, MAXR>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* region = base;
+  float* qs = reinterpret_cast<float*>(base + K::REGION);
+  float* ms = qs + MAXR * K::QD;               // the block's m and l
+  float* ls = ms + MAXR;
+  float* wts = ls + MAXR;                      // [warp or rank][MAXR]
+  float* inv = wts + K::WARPS8 * MAXR;         // [warp][MAXR] / [MAXR]
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      base + K::REGION + K::QS + up(K::SMALL, 16));
+  uint64_t* empty = full + K::STAGES;
 
-// MAXR: a compile-time bound on rep (the next power of two), so that the
-// per-head loops unroll into straight-line code
-template <typename T, int MAXR>
-__global__ void __launch_bounds__(THREADS) decode_partial_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int rep = p.Hq / p.Hkv;
-  const int D = p.D;
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + TK * D;
-  int* ps = reinterpret_cast<int*>(Vs + TK * D);       // kv_pos of the tile
-  float* qs = reinterpret_cast<float*>(ps + TK);       // rep x D
-  float* ss = qs + rep * D;                            // rep x TK
-  float* ms = ss + rep * TK;
-  float* ls = ms + rep;
-  float* cs = ls + rep;
-
-  const int bg = blockIdx.x;
-  const int split = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ncl = static_cast<int>(gridDim.x);  // the cluster spans x
+  const int bg = blockIdx.y;
   const int b = bg / p.Hkv;
   const int g = bg % p.Hkv;
+  const int rep = p.Hq / p.Hkv;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_b + (g * rep) * p.q_h;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_b + g * p.k_h;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_b + g * p.v_h;
+  const int t_begin = rank * p.per;
+  const int ntiles = max(0, min(p.tiles, t_begin + p.per) - t_begin);
 
-  for (int i = tid; i < rep * D; i += THREADS)
-    qs[i] = to_float(q[(i / D) * p.q_h + i % D]);
-  for (int r = tid; r < rep; r += THREADS) {
-    ms[r] = NEG_INF;
-    ls[r] = 0.0f;
+  if (tid == 0) {
+    for (int s = 0; s < K::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], K::CWARPS);
+    }
+    mbar_fence_init();
   }
-  float acc[MAXR][MAX_DC];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r)
-#pragma unroll
-    for (int c = 0; c < MAX_DC; ++c) acc[r][c] = 0.0f;
+  __syncthreads();
 
-  constexpr int V = Vec<T>::N;
-  const int c_begin = split * p.tiles_per_split * TK;
-  const int c_end = min(p.C, c_begin + p.tiles_per_split * TK);
-  for (int c0 = c_begin; c0 < c_end; c0 += TK) {
-    const int nk = min(TK, c_end - c0);
-    __syncthreads();           // q loaded / the previous tile is consumed
-    copy_tile(Ks, k, p.k_s, c0, nk, D);
-    copy_tile(Vs, v, p.v_s, c0, nk, D);
-    if (tid < nk) ps[tid] = p.kv_pos[c0 + tid];
-    cp_async_wait<1>();        // K has landed; V is still in flight
-    __syncthreads();
+  if (warp == K::CWARPS) {
+    // ---- producer: one thread keeps the ring full ----------------------
+    if (lane == 0) {
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % K::STAGES;
+        if (t >= K::STAGES) mbar_wait(&empty[s], ((t / K::STAGES) - 1) & 1);
+        unsigned char* st = region + s * K::STAGE;
+        const int c0 = (t_begin + t) * K::TK;
+        mbar_expect_tx(&full[s], K::TX);
+        tma_load_4d(st, &tk, &full[s], 0, c0, g, b);
+        tma_load_4d(st + K::TILE, &tv, &full[s], 0, c0, g, b);
+        tma_load_2d(st + 2 * K::TILE, &tp, &full[s], c0, 0);
+      }
+    }
+    __syncwarp();
+  }
 
-    // scores: 8 lanes per slot (4 slots per warp at a time), each lane
-    // over 16-byte chunks of the row, summed over the 8 lanes
-    for (int j0 = warp * (32 / LPK); j0 < TK; j0 += WARPS * (32 / LPK)) {
-      const int j = j0 + lane / LPK;
-      float dot[MAXR];
+  float red[K::RED];
+  if (warp < K::CWARPS) {
+    // ---- consumers: warp w owns heads hw0 .. hw0 + HPW - 1 and slots
+    // ws SPW .. (ws + 1) SPW - 1 of every tile --------------------------
+    const T* q = static_cast<const T*>(p.q) + b * p.q_b + (g * rep) * p.q_h;
+    for (int i = tid; i < rep * D; i += K::CTHREADS)
+      qs[(i / D) * K::QD + q_index<K::VEC>(i % D)] =
+          to_float(q[(i / D) * p.q_h + i % D]);
+    const int hw0 = (warp % K::WH) * K::HPW;
+    const int ws = warp / K::WH;
+    const int grp = lane / LPK;                // slot of the lane in a pass
+    const int sub = lane % LPK;
+    float m[K::HPW], l[K::HPW], acc[K::HPW][K::CPL];
 #pragma unroll
-      for (int r = 0; r < MAXR; ++r) dot[r] = 0.0f;
-      if (j < nk) {
-        for (int d0 = (lane % LPK) * V; d0 < D; d0 += LPK * V) {
-          float kv[V];
-          load16(Ks + j * D + d0, kv);
+    for (int r = 0; r < K::HPW; ++r) {
+      m[r] = NEG_INF;
+      l[r] = 0.0f;
 #pragma unroll
-          for (int r = 0; r < MAXR; ++r) {
-            if (r < rep) {
+      for (int c = 0; c < K::CPL; ++c) acc[r][c] = 0.0f;
+    }
+    bar_sync(BAR_CONSUMERS, K::CTHREADS);      // q is in
+
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % K::STAGES;
+      const unsigned char* st = region + s * K::STAGE;
+      const T* Ks = reinterpret_cast<const T*>(st);
+      const T* Vs = reinterpret_cast<const T*>(st + K::TILE);
+      const int* ps = reinterpret_cast<const int*>(st + 2 * K::TILE);
+      const int nk = min(K::TK, p.C - (t_begin + t) * K::TK);
+      mbar_wait(&full[s], (t / K::STAGES) & 1);
+
+      // scores of the warp's slots, LPK lanes per slot: every lane of a
+      // slot's group ends with its scores
+      const float* qw = qs + (K::QREG ? 0 : opaque32(0)) + hw0 * K::QD;
+      float sv[K::PASSES][K::HPW];
 #pragma unroll
-              for (int e = 0; e < V; ++e) dot[r] += qs[r * D + d0 + e] * kv[e];
+      for (int ps8 = 0; ps8 < K::PASSES; ++ps8) {
+        const int jj = ps8 * (32 / LPK) + grp;
+        const int j = ws * K::SPW + jj;
+        const bool in = jj < K::SPW && j < nk;
+        float dot[K::HPW];
+#pragma unroll
+        for (int r = 0; r < K::HPW; ++r) dot[r] = 0.0f;
+        if (in) {
+#pragma unroll
+          for (int d0 = sub * K::VEC; d0 < D; d0 += LPK * K::VEC) {
+            float kv[K::VEC];
+            load16(Ks + j * D + d0, kv);
+            const int qi = (d0 / (LPK * K::VEC)) * LPK * K::VEC + sub * 4;
+#pragma unroll
+            for (int r = 0; r < K::HPW; ++r) {
+              if (hw0 + r < rep) {
+#pragma unroll
+                for (int h = 0; h < K::VEC / 4; ++h) {
+                  float qv[4];
+                  ld_f4(qw + r * K::QD + qi + h * LPK * 4, qv);
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    dot[r] += qv[e] * kv[h * 4 + e];
+                }
+              }
             }
           }
         }
-      }
+        const int pos = in ? ps[j] : -1;
 #pragma unroll
-      for (int r = 0; r < MAXR; ++r) {
-        if (r < rep) {
+        for (int r = 0; r < K::HPW; ++r) {
 #pragma unroll
           for (int w = LPK / 2; w >= 1; w >>= 1)
             dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], w);
+          float x = dot[r] * p.scale;
+          if (p.cap != 0.0f) x = tanhf(x / p.cap) * p.cap;
+          x = pos >= 0 ? x : NEG_INF;
+          sv[ps8][r] = in ? x : -INFINITY;     // past the cache
         }
       }
-      if (lane % LPK == 0) {
-        const int pos = j < nk ? ps[j] : -1;
+
+      // online softmax over the warp's slots, then p v
 #pragma unroll
-        for (int r = 0; r < MAXR; ++r) {
-          if (r < rep) {
-            float x = dot[r] * p.scale;
-            if (p.cap != 0.0f) x = tanhf(x / p.cap) * p.cap;
-            x = pos >= 0 ? x : NEG_INF;
-            ss[r * TK + j] = j < nk ? x : -INFINITY;   // past the chunk
+      for (int r = 0; r < K::HPW; ++r) {
+        float mt = sv[0][r];
+#pragma unroll
+        for (int ps8 = 1; ps8 < K::PASSES; ++ps8) mt = fmaxf(mt, sv[ps8][r]);
+#pragma unroll
+        for (int w = LPK; w < 32; w <<= 1)
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, w));
+        const float mn = fmaxf(m[r], mt);
+        float sum = 0.0f;
+#pragma unroll
+        for (int ps8 = 0; ps8 < K::PASSES; ++ps8) {
+          sv[ps8][r] = expf(sv[ps8][r] - mn);
+          sum += sv[ps8][r];
+        }
+#pragma unroll
+        for (int w = LPK; w < 32; w <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, w);
+        const float corr = expf(m[r] - mn);
+        l[r] = l[r] * corr + sum;
+        m[r] = mn;
+#pragma unroll
+        for (int c = 0; c < K::CPL; ++c) acc[r][c] *= corr;
+      }
+#pragma unroll
+      for (int ps8 = 0; ps8 < K::PASSES; ++ps8) {
+#pragma unroll
+        for (int g8 = 0; g8 < 32 / LPK; ++g8) {
+          const int jj = ps8 * (32 / LPK) + g8;
+          const int j = ws * K::SPW + jj;
+          if (jj >= K::SPW || j >= nk) continue;   // uniform in the warp
+          float vv[K::CPL];
+          load_cols<K::CPL>(Vs + j * D + lane * K::CPL, vv);
+#pragma unroll
+          for (int r = 0; r < K::HPW; ++r) {
+            const float pj = __shfl_sync(0xffffffffu, sv[ps8][r], g8 * LPK);
+#pragma unroll
+            for (int c = 0; c < K::CPL; ++c) acc[r][c] += pj * vv[c];
           }
         }
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
-    __syncthreads();
 
-    // online softmax over the tile, one warp per query head
-    for (int r = warp; r < rep; r += WARPS) {
-      const float a = ss[r * TK + lane];
-      const float c = ss[r * TK + lane + 32];
-      float mt = fmaxf(a, c);
+    // the slot groups' (m, l, acc) of each head, merged in group order
+    bar_sync(BAR_CONSUMERS, K::CTHREADS);      // the ring is consumed
+    float* part = reinterpret_cast<float*>(region);   // [WS][rep][D]
 #pragma unroll
-      for (int w = 16; w >= 1; w >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, w));
-      const float mp = ms[r];
-      const float mn = fmaxf(mp, mt);
-      const float ea = expf(a - mn);
-      const float ec = expf(c - mn);
-      ss[r * TK + lane] = ea;
-      ss[r * TK + lane + 32] = ec;
-      float sum = ea + ec;
+    for (int r = 0; r < K::HPW; ++r) {
+      const int h = hw0 + r;
+      if (h < rep) {
 #pragma unroll
-      for (int w = 16; w >= 1; w >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      if (lane == 0) {
-        const float corr = expf(mp - mn);
-        cs[r] = corr;
-        ls[r] = ls[r] * corr + sum;
-        ms[r] = mn;
-      }
-    }
-    cp_async_wait<0>();        // V has landed
-    __syncthreads();
-
-    // acc[r][d] = acc[r][d] * corr_r + sum_j p[r][j] v[j][d]
-#pragma unroll
-    for (int dc = 0; dc < MAX_DC; ++dc) {
-      const int d = tid + dc * THREADS;
-      if (d < D) {
-#pragma unroll
-        for (int r = 0; r < MAXR; ++r)
-          if (r < rep) acc[r][dc] *= cs[r];
-#pragma unroll 4
-        for (int j = 0; j < nk; ++j) {
-          const float vv = to_float(Vs[j * D + d]);
-#pragma unroll
-          for (int r = 0; r < MAXR; ++r)
-            if (r < rep) acc[r][dc] += ss[r * TK + j] * vv;
+        for (int c = 0; c < K::CPL; ++c)
+          part[(ws * rep + h) * D + lane * K::CPL + c] = acc[r][c];
+        if (lane == 0) {
+          wts[ws * MAXR + h] = m[r];
+          inv[ws * MAXR + h] = l[r];
         }
       }
     }
-  }
-
-  float* w = p.ws + (static_cast<size_t>(bg) * p.nsplit + split) * rep *
-                        (D + 2);
+    bar_sync(BAR_CONSUMERS, K::CTHREADS);
+    if (tid < rep) {
+      float M = -INFINITY;
+      for (int w8 = 0; w8 < K::WS; ++w8) M = fmaxf(M, wts[w8 * MAXR + tid]);
+      float L = 0.0f;
+      for (int w8 = 0; w8 < K::WS; ++w8) {
+        const float e = expf(wts[w8 * MAXR + tid] - M);
+        L += inv[w8 * MAXR + tid] * e;
+        wts[w8 * MAXR + tid] = e;
+      }
+      ms[tid] = M;
+      ls[tid] = L;
+    }
+    bar_sync(BAR_CONSUMERS, K::CTHREADS);
 #pragma unroll
-  for (int dc = 0; dc < MAX_DC; ++dc) {
-    const int d = tid + dc * THREADS;
-    if (d < D) {
-#pragma unroll
-      for (int r = 0; r < MAXR; ++r)
-        if (r < rep) w[r * (D + 2) + d] = acc[r][dc];
+    for (int i = 0; i < K::RED; ++i) {
+      const int e = tid + i * K::CTHREADS;
+      float sum = 0.0f;
+      if (e < rep * D) {
+        const int r = e / D;
+        for (int w8 = 0; w8 < K::WS; ++w8)
+          sum += part[w8 * rep * D + e] * wts[w8 * MAXR + r];
+      }
+      red[i] = sum;
     }
   }
+
+  // every block of the cluster is done with its shared memory before any
+  // block writes into rank 0's
+  cluster_arrive();
+  cluster_wait();
+  float* parts = cluster.map_shared_rank(reinterpret_cast<float*>(region), 0)
+                 + rank * rep * (D + 2);       // [rep][D + 2] of this rank
+  if (warp < K::CWARPS) {
+#pragma unroll
+    for (int i = 0; i < K::RED; ++i) {
+      const int e = tid + i * K::CTHREADS;
+      if (e < rep * D) parts[(e / D) * (D + 2) + e % D] = red[i];
+    }
+    if (tid < rep) {
+      parts[tid * (D + 2) + D] = ms[tid];
+      parts[tid * (D + 2) + D + 1] = ls[tid];
+    }
+  }
+  cluster_arrive();
+  if (rank != 0) return;
+
+  // rank 0 merges the ranks in rank order
+  cluster_wait();
+  const float* all = reinterpret_cast<const float*>(region);
+  const int step = rep * (D + 2);
   if (tid < rep) {
-    w[tid * (D + 2) + D] = ms[tid];
-    w[tid * (D + 2) + D + 1] = ls[tid];
+    float M = -INFINITY;
+    for (int r8 = 0; r8 < ncl; ++r8)
+      M = fmaxf(M, all[r8 * step + tid * (D + 2) + D]);
+    float L = 0.0f;
+    for (int r8 = 0; r8 < ncl; ++r8) {
+      const float w = expf(all[r8 * step + tid * (D + 2) + D] - M);
+      wts[r8 * MAXR + tid] = w;
+      L += all[r8 * step + tid * (D + 2) + D + 1] * w;
+    }
+    inv[tid] = 1.0f / fmaxf(L, 1e-30f);
   }
-}
-
-// one block per (batch, kv head, query head of the group)
-template <typename T>
-__global__ void __launch_bounds__(THREADS) decode_combine_kernel(Params p) {
-  extern __shared__ float wts[];   // exp(m_i - M) of each chunk i
-  const int rep = p.Hq / p.Hkv;
-  const int D = p.D;
-  const int bg = blockIdx.x / rep;
-  const int r = blockIdx.x % rep;
-  const int b = bg / p.Hkv;
-  const int g = bg % p.Hkv;
-  const int lane = threadIdx.x & 31;
-  const float* w = p.ws + static_cast<size_t>(bg) * p.nsplit * rep * (D + 2)
-                   + r * (D + 2);
-  const size_t step = static_cast<size_t>(rep) * (D + 2);
-  float M = -INFINITY;         // every warp reduces the same maximum
-  for (int i = lane; i < p.nsplit; i += 32) M = fmaxf(M, w[i * step + D]);
-#pragma unroll
-  for (int s = 16; s >= 1; s >>= 1)
-    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, s));
-  for (int i = threadIdx.x; i < p.nsplit; i += THREADS)
-    wts[i] = expf(w[i * step + D] - M);
   __syncthreads();
-  float L = 0.0f;
-  for (int i = lane; i < p.nsplit; i += 32) L += w[i * step + D + 1] * wts[i];
-#pragma unroll
-  for (int s = 16; s >= 1; s >>= 1)
-    L += __shfl_xor_sync(0xffffffffu, L, s);
-  const float inv = 1.0f / fmaxf(L, 1e-30f);
-  T* o = static_cast<T*>(p.o) + b * p.o_b + (g * rep + r) * p.o_h;
-  for (int d = threadIdx.x; d < D; d += THREADS) {
+  T* o = static_cast<T*>(p.o) + b * p.o_b + (g * rep) * p.o_h;
+  for (int e = tid; e < rep * D; e += K::THREADS) {
+    const int r = e / D;
+    const int d = e % D;
     float a = 0.0f;
-    for (int i = 0; i < p.nsplit; ++i) a += w[i * step + d] * wts[i];
-    store(o + d, a * inv);
+    for (int r8 = 0; r8 < ncl; ++r8)
+      a += all[r8 * step + r * (D + 2) + d] * wts[r8 * MAXR + r];
+    store(o + r * p.o_h + d, a * inv[r]);
   }
 }
 
-template <typename T, int MAXR>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const int rep = p.Hq / p.Hkv;
-  const size_t bytes = partial_smem<T>(rep, p.D);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_partial_kernel<T, MAXR>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+// a tensor map (D, C, Hkv, B) over a [B, C, Hkv, D] cache with element
+// strides (b, c, h), boxes of one tile (D, TK, 1, 1)
+template <typename T, int D, int MAXR>
+bool cache_map(CUtensorMap* map, const void* base, int B, int C, int Hkv,
+               long long sb, long long sc, long long sh) {
+  using K = Cfg<T, D, MAXR>;
+  const long long es = sizeof(T);
+  // a dimension of size 1 is never stepped: give it a valid stride
+  const long long big = (static_cast<long long>(C) * Hkv * D + 8) * es;
+  const uint64_t sizes[4] = {static_cast<uint64_t>(D),
+                             static_cast<uint64_t>(C),
+                             static_cast<uint64_t>(Hkv),
+                             static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {
+      static_cast<uint64_t>(C > 1 ? sc * es : big),
+      static_cast<uint64_t>(Hkv > 1 ? sh * es : big),
+      static_cast<uint64_t>(B > 1 ? sb * es : big)};
+  const uint32_t box[4] = {static_cast<uint32_t>(D),
+                           static_cast<uint32_t>(K::TK), 1, 1};
+  return make_tensor_map_dense(map, Elem<T>::TMA, base, 4, sizes, strides,
+                               box) == CUDA_SUCCESS;
+}
+
+// once per instantiation: the shared memory above 48 KB
+template <typename T, int D, int MAXR>
+cudaError_t prepare() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_attention_kernel<T, D, MAXR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<T, D, MAXR>::SMEM);
+  return attr;
+}
+
+struct Args {
+  const void *q, *k, *v, *kv_pos;
+  void* o;
+  int B, Hq, Hkv, C, cluster, per;
+  long long q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h;
+  float scale, cap;
+};
+
+template <typename T, int D, int MAXR>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  using K = Cfg<T, D, MAXR>;
+  const auto kernel = decode_attention_kernel<T, D, MAXR>;
+  const cudaError_t attr = prepare<T, D, MAXR>();
+  if (attr != cudaSuccess) return attr;
+  if (a.cluster < 1 || a.cluster > MAX_CLUSTER || a.per < 1)
+    return cudaErrorInvalidValue;
+  const int tiles = (a.C + K::TK - 1) / K::TK;
+  if (static_cast<long long>(a.cluster) * a.per < tiles)
+    return cudaErrorInvalidValue;
+  CUtensorMap tk, tv, tp;
+  const uint64_t p_sizes[2] = {static_cast<uint64_t>(a.C), 1};
+  const uint64_t p_strides[1] = {static_cast<uint64_t>(up(a.C * 4, 16))};
+  const uint32_t p_box[2] = {static_cast<uint32_t>(K::TK), 1};
+  if (!cache_map<T, D, MAXR>(&tk, a.k, a.B, a.C, a.Hkv, a.k_b, a.k_s,
+                             a.k_h) ||
+      !cache_map<T, D, MAXR>(&tv, a.v, a.B, a.C, a.Hkv, a.v_b, a.v_s,
+                             a.v_h) ||
+      make_tensor_map_dense(&tp, CU_TENSOR_MAP_DATA_TYPE_INT32, a.kv_pos, 2,
+                            p_sizes, p_strides, p_box) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  Params p{a.q, a.o, a.Hq, a.Hkv, a.C, a.per, tiles, a.q_b, a.q_h, a.o_b,
+           a.o_h, a.scale, a.cap};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cluster, a.B * a.Hkv);
+  cfg.blockDim = dim3(K::THREADS);
+  cfg.dynamicSmemBytes = K::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = a.cluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, tk, tv, tp, p);
   if (err != cudaSuccess) return err;
-  decode_partial_kernel<T, MAXR><<<dim3(B * p.Hkv, p.nsplit), THREADS,
-                                   bytes, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<B * p.Hkv * rep, THREADS,
-                             sizeof(float) * p.nsplit, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const Params& p, int B, cudaStream_t stream) {
-  const int rep = p.Hq / p.Hkv;
-  if (rep <= 1) return launch<T, 1>(p, B, stream);
-  if (rep <= 2) return launch<T, 2>(p, B, stream);
-  if (rep <= 4) return launch<T, 4>(p, B, stream);
-  if (rep <= 8) return launch<T, 8>(p, B, stream);
-  if (rep <= MAX_REP) return launch<T, MAX_REP>(p, B, stream);
-  return cudaErrorInvalidValue;
+// f.operator()<T, D, MAXR>() of the instantiation that serves (dtype, D,
+// rep), -1 where there is none.  MAXR: a compile-time bound on rep (the
+// next power of two), so that the per-head loops unroll into straight-line
+// code.
+template <typename T, int D, typename F>
+long long by_rep(int rep, const F& f) {
+  if (rep <= 1) return f.template operator()<T, D, 1>();
+  if (rep <= 2) return f.template operator()<T, D, 2>();
+  if (rep <= 4) return f.template operator()<T, D, 4>();
+  if (rep <= 8) return f.template operator()<T, D, 8>();
+  return f.template operator()<T, D, MAX_REP>();
 }
+
+template <typename T, typename F>
+long long by_dim(int D, int rep, const F& f) {
+  switch (D) {
+    case 32: return by_rep<T, 32>(rep, f);
+    case 64: return by_rep<T, 64>(rep, f);
+    case 96: return by_rep<T, 96>(rep, f);
+    case 128: return by_rep<T, 128>(rep, f);
+    case 256: return by_rep<T, 256>(rep, f);
+    default: return -1;
+  }
+}
+
+template <typename F>
+long long by_shape(int dtype, int D, int rep, const F& f) {
+  if (rep < 1 || rep > MAX_REP) return -1;
+  if (dtype == 0) return by_dim<float>(D, rep, f);
+  if (dtype == 1) return by_dim<__nv_bfloat16>(D, rep, f);
+  return -1;
+}
+
+struct TileOf {
+  template <typename T, int D, int MAXR> long long operator()() const {
+    return Cfg<T, D, MAXR>::TK;
+  }
+};
+// blocks of the instantiation that fit one SM (its registers, shared
+// memory and threads), or -1
+struct BlocksPerSm {
+  template <typename T, int D, int MAXR> long long operator()() const {
+    int n = 0;
+    if (prepare<T, D, MAXR>() != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, decode_attention_kernel<T, D, MAXR>,
+            Cfg<T, D, MAXR>::THREADS, Cfg<T, D, MAXR>::SMEM) != cudaSuccess)
+      return -1;
+    return n;
+  }
+};
+struct Launch {
+  const Args& a;
+  cudaStream_t stream;
+  template <typename T, int D, int MAXR> long long operator()() const {
+    return static_cast<long long>(launch<T, D, MAXR>(a, stream));
+  }
+};
 
 }  // namespace
 
-extern "C" int decode_attention_tile() { return TK; }
+// the most blocks of a cluster and query heads per kv head it takes
+extern "C" int decode_attention_max_cluster() { return MAX_CLUSTER; }
 extern "C" int decode_attention_max_rep() { return MAX_REP; }
 
+// cache slots per tile and blocks per SM of the instantiation that serves
+// (dtype, D, rep); -1 if there is none
+extern "C" int decode_attention_tile(int dtype, int D, int rep) {
+  return static_cast<int>(by_shape(dtype, D, rep, TileOf{}));
+}
+extern "C" int decode_attention_blocks_per_sm(int dtype, int D, int rep) {
+  return static_cast<int>(by_shape(dtype, D, rep, BlocksPerSm{}));
+}
+
 // dtype: 0 float32, 1 bfloat16.  q [B, Hq, D]; k, v [B, C, Hkv, D] with
-// strides in elements (D contiguous); kv_pos [C] int32; ws: float32
-// scratch of B*Hkv*nsplit*(Hq/Hkv)*(D+2).  Returns the CUDA error (0: ok).
+// strides in elements (D contiguous, the others multiples of 16 bytes),
+// 16-byte aligned; kv_pos [C] int32, 16-byte aligned.  The cache of each
+// (batch, kv head) is split into ``cluster`` parts of ``per`` tiles.
+// Returns the CUDA error (0: ok).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* kv_pos,
-    void* ws, void* o, int dtype, int B, int Hq, int Hkv, int C, int D,
-    int nsplit, int tiles_per_split,
-    long long q_b, long long q_h, long long k_b, long long k_s,
+    void* o, int dtype, int B, int Hq, int Hkv, int C, int D, int cluster,
+    int per, long long q_b, long long q_h, long long k_b, long long k_s,
     long long k_h, long long v_b, long long v_s, long long v_h,
     long long o_b, long long o_h, float scale, float cap, void* stream) {
-  Params p{q, k, v, static_cast<const int*>(kv_pos),
-           static_cast<float*>(ws), o, Hq, Hkv, C, D, nsplit,
-           tiles_per_split, q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b,
-           o_h, scale, cap};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(dispatch<float>(p, B, s));
-  if (dtype == 1) return static_cast<int>(dispatch<__nv_bfloat16>(p, B, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv || C <= 0 || B * Hkv > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, kv_pos, o, B, Hq, Hkv, C, cluster, per, q_b, q_h,
+               k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h, scale, cap};
+  const long long err = by_shape(dtype, D, Hq / Hkv,
+                                 Launch{a, static_cast<cudaStream_t>(stream)});
+  return err < 0 ? static_cast<int>(cudaErrorInvalidValue)
+                 : static_cast<int>(err);
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tensor copies, wgmma and its shared-memory descriptors, register
 // hand-over between warpgroups (setmaxnreg) and named barriers, as inline
-// PTX; and the host-side tensor-map encoder.  Included by
-// flash_attention.cu and expert_matmul.cu; the build hashes every header
+// PTX; and the host-side tensor-map encoders.  Included by
+// flash_attention.cu, expert_matmul.cu and decode_attention.cu; the build
+// hashes every header
 // here into each library's name, so a change here rebuilds them.
 //
 // Conventions.  A TMA copy with 128-byte (64-byte) swizzle writes a box of
@@ -76,6 +77,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // the box of ``map`` at coordinates (c0 innermost, ...) into shared memory
 // at ``dst``, completing ``bytes`` on ``bar``
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {
@@ -467,5 +478,21 @@ inline CUresult make_tensor_map_bf16(CUtensorMap* map, const void* base,
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
       sizes, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// a tiled tensor map without swizzle: the box lands in shared memory as a
+// dense row-major array (innermost dimension contiguous), for kernels that
+// read their tiles on the CUDA cores; elements outside the sizes read as 0
+inline CUresult make_tensor_map_dense(CUtensorMap* map,
+                                      CUtensorMapDataType dtype,
+                                      const void* base, int rank,
+                                      const uint64_t* sizes,
+                                      const uint64_t* strides,
+                                      const uint32_t* box) {
+  const uint32_t ones[5] = {1, 1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(
+      map, dtype, rank, const_cast<void*>(base), sizes, strides, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

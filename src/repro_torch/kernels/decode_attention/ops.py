@@ -9,10 +9,13 @@ head ``h // (Hq // Hkv)``.  Per score: ``s = q.k * scale``, then
 ``tanh(s / cap) * cap``, then the mask; softmax in float32.
 
 On this card the kernel is bound by the bytes of the cache it reads (see
-the note in ``csrc/decode_attention.cu``): one block per (batch, kv head,
-chunk of the cache) computes every query head of its group, and a second
-kernel merges the chunks.  :func:`gqa_decode` launches it for CUDA tensors
-and runs :func:`decode_attention_plain` only for CPU tensors.
+the note in ``csrc/decode_attention.cu``): the cache of each (batch, kv
+head) is split over the blocks of a thread-block cluster, each block
+streams its part through a TMA ring and computes every query head of its
+group, and the cluster merges the parts inside the launch.  :func:`plan`
+picks the cluster's size and split.  :func:`gqa_decode` launches the
+kernel for CUDA tensors and runs :func:`decode_attention_plain` only for
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -28,21 +31,38 @@ from repro_torch.kernels._build import library
 NEG_INF = -2.3819763e38
 HEAD_DIMS = (32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: blocks the split aims at per SM
-BLOCKS_PER_SM = 2
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
+    """The library, its argument types set once, when it is loaded."""
     lib = library("decode_attention")
     lib.decode_attention_launch.argtypes = (
-        [_P] * 6 + [_I] * 8 + [_L] * 10 + [_F, _F, _P])
+        [_P] * 5 + [_I] * 8 + [_L] * 10 + [_F, _F, _P])
     lib.decode_attention_launch.restype = _I
-    for fn in ("decode_attention_tile", "decode_attention_max_rep"):
+    for fn in ("decode_attention_tile", "decode_attention_blocks_per_sm"):
+        getattr(lib, fn).argtypes = [_I, _I, _I]
+        getattr(lib, fn).restype = _I
+    for fn in ("decode_attention_max_rep", "decode_attention_max_cluster"):
+        getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _shape(dtype: int, d: int, rep: int):
+    """(slots per tile, blocks that fit an SM, most blocks of a cluster)
+    of the instantiation that serves (dtype, d, rep)."""
+    lib = _lib()
+    per_sm = lib.decode_attention_blocks_per_sm(dtype, d, rep)
+    if per_sm < 1:
+        raise RuntimeError(f"decode_attention: no block of dtype {dtype}, "
+                           f"D={d}, rep={rep} fits an SM")
+    return (lib.decode_attention_tile(dtype, d, rep), per_sm,
+            lib.decode_attention_max_cluster())
 
 
 def decode_attention_plain(q, k, v, kv_pos, *, scale: float | None = None,
@@ -89,11 +109,15 @@ def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _split(dev, groups: int, tiles: int):
-    """(nsplit, tiles per split): enough chunks of the cache for about
-    ``BLOCKS_PER_SM`` blocks per SM, each chunk at least one tile."""
-    want = max(1, math.ceil(BLOCKS_PER_SM * _sm_count(dev) / groups))
-    per = math.ceil(tiles / min(tiles, want))
+def plan(groups: int, c: int, tile: int, slots: int, max_cluster: int):
+    """(cluster, tiles per block) for ``groups`` (batch, kv head) caches of
+    ``c`` slots in tiles of ``tile``: the largest cluster, up to
+    ``max_cluster`` blocks and one block per tile, whose grid still fits
+    the ``slots`` blocks the card runs at once; every block of a cluster
+    gets at least one tile."""
+    tiles = math.ceil(c / tile)
+    want = max(1, min(max_cluster, tiles, slots // groups))
+    per = math.ceil(tiles / want)
     return math.ceil(tiles / per), per
 
 
@@ -132,19 +156,20 @@ def gqa_decode(q, k, v, kv_pos, *, scale: float | None = None,
         raise ValueError(f"q needs a contiguous head dim, strides "
                          f"{q.stride()}")
     kv_pos = kv_pos.contiguous()
+    if kv_pos.data_ptr() % 16:           # a TMA source is 16-byte aligned
+        kv_pos = kv_pos.clone()
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0 or c == 0:
         return out
-    tiles = math.ceil(c / lib.decode_attention_tile())
-    nsplit, per = _split(q.device, b * hkv, tiles)
-    ws = torch.empty(b * hkv * nsplit * rep * (d + 2), dtype=torch.float32,
-                     device=q.device)
+    tile, per_sm, max_cluster = _shape(_DTYPES[q.dtype], d, rep)
+    cluster, per = plan(b * hkv, c, tile, per_sm * _sm_count(q.device),
+                        max_cluster)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
-        ws.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, hq, hkv, c, d,
-        nsplit, per, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        out.data_ptr(), _DTYPES[q.dtype], b, hq, hkv, c, d,
+        cluster, per, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         k.stride(2), v.stride(0), v.stride(1), v.stride(2), out.stride(0),
         out.stride(1), float(scale), float(logit_cap or 0.0), stream)
     if err != 0:

@@ -13,13 +13,18 @@ and ``y_t = S_t C_t``; returns y ``[b, s, h, p]`` and the final state
 (``repro/models/mamba2.py``) in PyTorch: every chunk's work as batched
 matrix products, the inter-chunk recurrence as an associative scan in the
 reference's bracketing.  :func:`ssd` launches the kernel for CUDA tensors
-(one block per (batch, head) walking the sequence in order; see the note
-in ``csrc/ssd_scan.cu``) and runs :func:`ssd_plain` only for CPU tensors.
+(the sequence cut into chunks that run in parallel: the chunks' own
+states, a short recurrence over them that leaves each chunk's entry
+state, then every chunk's output from its entry state, the products on
+the tensor cores in 3xTF32; see the note in ``csrc/ssd_scan.cu``;
+:func:`chunk_plan` gives the cut) and runs :func:`ssd_plain` only for CPU
+tensors.
 The two sum in other orders: they agree to float32 rounding.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -30,12 +35,23 @@ from repro_torch.sim.scan_core import associative_scan
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
+    """The library, its argument types set once, when it is loaded."""
     lib = library("ssd_scan")
-    lib.ssd_scan_launch.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    lib.ssd_scan_launch.argtypes = [_P] * 9 + [_I] * 6 + [_P]
     lib.ssd_scan_launch.restype = _I
-    lib.ssd_scan_max_dim.restype = _I
+    for fn in ("ssd_scan_max_dim", "ssd_scan_chunk"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = _I
     return lib
+
+
+def chunk_plan(s: int, chunk: int) -> int:
+    """The chunks of the kernel's cut of ``s`` steps into chunks of
+    ``chunk`` (the last one shorter): they run in parallel, and the
+    workspace holds one state and one decay per chunk."""
+    return -(-s // chunk)
 
 
 def segsum(a):
@@ -152,11 +168,15 @@ def ssd(x, dt, A, B, C, *, chunk: int = 256):
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, state.zero_()
+    nc = chunk_plan(s, lib.ssd_scan_chunk())
+    ws = torch.empty((b, h, nc, p * n), dtype=torch.float32,
+                     device=x.device)
+    dec = torch.empty((b, h, nc), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, p, g, n,
-        stream)
+        C.data_ptr(), y.data_ptr(), state.data_ptr(), ws.data_ptr(),
+        dec.data_ptr(), b, s, h, p, g, n, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     with _count_lock:            # flight members launch from threads

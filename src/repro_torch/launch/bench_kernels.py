@@ -1,0 +1,245 @@
+"""Time the decode-attention and SSD-scan kernels at the served shapes.
+
+    PYTHONPATH=src python -m repro_torch.launch.bench_kernels \
+        [--reps 20] [--only ssd_scan] [--ssd-lengths 4096,32768] \
+        [--out bench_kernels.json]
+
+``gqa_decode`` (K4) at the decode shapes of the three served models, bf16,
+B=2: gemma2-9b (16 q / 8 kv heads of 256; a global layer's cache of
+4,648 slots and a local layer's ring of 4,096, logit cap 50, and both at
+cap 0 beside ``scaled_dot_product_attention`` with the slot mask),
+granite-moe-3b-a800m (24 / 8 heads of 64, 4,136 slots) and zamba2-1.2b's
+shared block (32 / 32 heads of 64, 4,136 slots), each beside SDPA; and
+``ssd`` (K6) at zamba2-1.2b's prefill (B=2, 64 heads, P=N=64, float32)
+at each of ``--ssd-lengths`` (S=4,096 is the served prompt; longer ones
+show how the time grows with the number of chunks).  Every timing cycles
+through enough distinct inputs that they outgrow the card's 50 MB L2,
+since a layer finds its cache and its activations cold.  Each call is
+timed twice: as a CUDA graph of the loop replayed between CUDA events
+(``ms``: the device's time, without the host's work per launch) and as
+the loop itself between events (``loop_ms``: where the host takes longer
+to launch a call than the device to run it, that is the host's pace).
+Each row carries its bound, the larger of two times: the bytes it must
+move (inputs once, output once) at 3.35 TB/s, and for K6 the plain
+recurrence's operations (5 P N per step and head) at the rate of the
+units that run them, the tensor cores' TF32 rate over three (3xTF32).
+
+The script uses only the kernels' public wrappers, so it also times an
+older checkout of the package: put that checkout's ``src`` on
+``PYTHONPATH`` and run this file by its path.  Prints one JSON object.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+TF32_OPS_PER_S = 495e12      # H100 SXM, dense TF32 tensor cores
+L2_BYTES = 50e6
+PROMPT, DECODE_STEPS = 4608, 32
+PROMPT2 = 4096               # granite's and zamba2's prompts
+# (name, Hq, Hkv, D, cache slots, window of the ring or 0, logit cap,
+# prompt): the caches of the served runs, late in their decode
+DECODE_SHAPES = [
+    ("gemma2-9b global", 16, 8, 256, PROMPT + DECODE_STEPS + 8, 0, 50.0,
+     PROMPT),
+    ("gemma2-9b local", 16, 8, 256, 4096, 4096, 50.0, PROMPT),
+    ("granite-moe-3b-a800m", 24, 8, 64, PROMPT2 + DECODE_STEPS + 8, 0, 0.0,
+     PROMPT2),
+    ("zamba2-1.2b shared", 32, 32, 64, PROMPT2 + DECODE_STEPS + 8, 0, 0.0,
+     PROMPT2),
+]
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def loop_ms(fn, sets, reps: int, warmup: bool = True) -> float:
+    """Mean time (ms) between the launches of ``fn(*s)`` over ``reps``
+    passes through ``sets``, after one pass to warm up unless ``warmup``
+    is false (CUDA events over the loop: where the host takes longer to
+    launch a call than the device to run it, this is the host's pace)."""
+    if warmup:
+        for s in sets:
+            fn(*s)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for s in sets:
+            fn(*s)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(sets))
+
+
+def graph_ms(fn, sets, reps: int) -> float:
+    """The device's time per call of ``fn(*s)``: one pass through ``sets``
+    captured as a CUDA graph and replayed ``reps`` times between two CUDA
+    events, so that the host's work per launch is not in it."""
+    for s in sets:
+        fn(*s)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):            # warm up off the default stream
+        for s in sets:
+            fn(*s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for s in sets:
+            fn(*s)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * len(sets))
+
+
+def copies(nbytes: int) -> int:
+    """Distinct inputs of ``nbytes`` each that outgrow the L2 twice."""
+    return max(2, math.ceil(2 * L2_BYTES / nbytes))
+
+
+def decode_sets(hq, hkv, d, c, window, prompt, batch, seed, dev,
+                count=None):
+    """``count`` distinct (q, k, v, kv_pos), by default enough to outgrow
+    the L2; the positions are the model's at a step late in the decode."""
+    from repro_torch.models.transformer import decode_positions
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos = decode_positions(prompt + DECODE_STEPS - 12, c, window, dev)
+    nbytes = 2 * 2 * batch * c * hkv * d
+    out = []
+    for _ in range(count or copies(nbytes)):
+        q = torch.randn((batch, hq, d), generator=gen, device=dev)
+        k = torch.randn((batch, c, hkv, d), generator=gen, device=dev)
+        v = torch.randn((batch, c, hkv, d), generator=gen, device=dev)
+        out.append((q.bfloat16(), k.bfloat16(), v.bfloat16(), pos))
+    return out, nbytes
+
+
+def bench_decode(reps: int, dev, batch: int = 2) -> list:
+    from repro_torch.kernels.decode_attention.ops import gqa_decode
+    rows = []
+    for name, hq, hkv, d, c, window, cap, prompt in DECODE_SHAPES:
+        sets, nbytes = decode_sets(hq, hkv, d, c, window, prompt, batch, 5,
+                                   dev)
+        scale = d ** -0.5
+        row = dict(shape=name, B=batch, Hq=hq, Hkv=hkv, D=d, C=c,
+                   cap=cap, copies=len(sets))
+        kern = lambda q, k, v, p: gqa_decode(q, k, v, p, scale=scale,  # noqa
+                                             logit_cap=cap)
+        row["loop_ms"] = loop_ms(kern, sets, reps)
+        row["ms"] = graph_ms(kern, sets, reps)
+        row["cap0_ms"] = (row["ms"] if cap == 0.0 else
+                          graph_ms(lambda q, k, v, p: gqa_decode(
+                              q, k, v, p, scale=scale), sets, reps))
+        # SDPA reads [B, H, C, D]: the same caches, transposed beforehand
+        sdpa_sets = [(q[:, :, None], k.transpose(1, 2).contiguous(),
+                      v.transpose(1, 2).contiguous(),
+                      (p >= 0)[None, None, None, :]) for q, k, v, p in sets]
+        del sets
+        sdpa = lambda q, k, v, m: F.scaled_dot_product_attention(  # noqa
+            q, k, v, attn_mask=m, scale=scale, enable_gqa=True)
+        row["sdpa_loop_ms"] = loop_ms(sdpa, sdpa_sets, reps)
+        row["sdpa_ms"] = graph_ms(sdpa, sdpa_sets, reps)
+        del sdpa_sets
+        moved = nbytes + 2 * 2 * batch * hq * d + 4 * c
+        row["bound_ms"] = 1e3 * moved / HBM_BYTES_PER_S
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_sets(batch, s, h, p, g, n, seed, dev, count):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(count):
+        x = torch.randn((batch, s, h, p), generator=gen, device=dev)
+        dt = F.softplus(torch.randn((batch, s, h), generator=gen,
+                                    device=dev))
+        A = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.3)
+        B = torch.randn((batch, s, g, n), generator=gen, device=dev) * 0.5
+        C = torch.randn((batch, s, g, n), generator=gen, device=dev) * 0.5
+        out.append((x, dt, A, B, C))
+    return out
+
+
+def bench_ssd(reps: int, dev, batch: int = 2, s: int = 4096, h: int = 64,
+              p: int = 64, n: int = 64, chunk: int = 256) -> dict:
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    nbytes = 4 * (2 * batch * s * h * p + batch * s * h + 2 * batch * s * n)
+    sets = ssd_sets(batch, s, h, p, 1, n, 6, dev, copies(nbytes))
+    kern = lambda *a: ssd(*a, chunk=chunk)  # noqa: E731
+    row = dict(shape=f"zamba2-1.2b heads, S={s}", B=batch, S=s, H=h, P=p,
+               N=n, copies=len(sets), loop_ms=loop_ms(kern, sets, reps),
+               ms=graph_ms(kern, sets, reps))
+    del sets
+    torch.cuda.empty_cache()
+    ops_ms = 1e3 * 5 * p * n * batch * s * h / (TF32_OPS_PER_S / 3)
+    bytes_ms = 1e3 * (nbytes + 4 * batch * h * p * n) / HBM_BYTES_PER_S
+    row.update(bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms > bytes_ms else "bytes")
+    return row
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", choices=("decode_attention", "ssd_scan"),
+                    default=None, help="time one of the two kernels")
+    ap.add_argument("--ssd-lengths", default="4096",
+                    help="comma-separated sequence lengths for K6")
+    ap.add_argument("--label", default="")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench_kernels: no CUDA device is visible", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    name = card()
+    out = dict(label=args.label, card=name, decode_attention=[],
+               ssd_scan=[])
+    if args.only != "ssd_scan":
+        out["decode_attention"] = bench_decode(args.reps, dev)
+    if args.only != "decode_attention":
+        out["ssd_scan"] = [bench_ssd(max(2, args.reps // 4), dev, s=int(s))
+                           for s in args.ssd_lengths.split(",")]
+    for row in out["decode_attention"]:
+        print(f"decode_attention {row['shape']} (C={row['C']}, "
+              f"{row['copies']} caches): graph {row['ms']:.5f} ms "
+              f"(cap 0 {row['cap0_ms']:.5f}), SDPA graph "
+              f"{row['sdpa_ms']:.5f} ms; event loop {row['loop_ms']:.5f} "
+              f"ms, SDPA {row['sdpa_loop_ms']:.5f} ms; bound "
+              f"{row['bound_ms']:.5f} ms (bytes) [{name}]", flush=True)
+    for r in out["ssd_scan"]:
+        print(f"ssd_scan {r['shape']} ({r['copies']} inputs): graph "
+              f"{r['ms']:.5f} ms; event loop {r['loop_ms']:.5f} ms; bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}) [{name}]",
+              flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

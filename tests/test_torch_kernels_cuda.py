@@ -276,6 +276,75 @@ def test_decode_kernel_matches_plain_on_card(cuda, b, hq, hkv, c, d, valid,
                                        logit_cap=cap), dtype)
 
 
+def _decode_inputs(dev, seed, b, hq, hkv, c, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, c, hkv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, c, hkv, d), generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep", [1, 2, 3, 16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+def test_decode_kernel_every_head_dim_and_group(cuda, d, rep, dtype):
+    """Each head dim and group width, with a cache that is not a whole
+    number of tiles or of the cluster's parts, a logit cap and holes."""
+    q, k, v = _decode_inputs(cuda, 11, 2, 2 * rep, 2, 777, d, dtype)
+    pos = np.arange(777, dtype=np.int32)
+    pos[::5] = -1
+    pos = torch.as_tensor(pos, device=cuda)
+    got = gqa_decode(q, k, v, pos, scale=d ** -0.5, logit_cap=30.0)
+    _close(got, decode_attention_plain(q, k, v, pos, scale=d ** -0.5,
+                                       logit_cap=30.0), dtype)
+
+
+# c: below one tile, one slot past a tile, ragged over the cluster
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 20, 65, 1000, 2051])
+def test_decode_kernel_cache_lengths(cuda, c, dtype):
+    q, k, v = _decode_inputs(cuda, 12, 1, 8, 4, c, 64, dtype)
+    pos = torch.arange(c, dtype=torch.int32, device=cuda)
+    got = gqa_decode(q, k, v, pos, scale=0.125)
+    _close(got, decode_attention_plain(q, k, v, pos, scale=0.125), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", ["first half", "all but one", "all"])
+def test_decode_kernel_masked_parts_of_the_cluster(cuda, masked):
+    """Blocks of the cluster whose whole part of the cache is masked: they
+    must drop out of the merge (and with every slot masked, the softmax is
+    uniform over the cache, as in the plain version)."""
+    c = 4096
+    q, k, v = _decode_inputs(cuda, 13, 2, 16, 8, c, 256, torch.bfloat16)
+    pos = np.arange(c, dtype=np.int32)
+    if masked == "first half":
+        pos[: c // 2] = -1
+    elif masked == "all but one":
+        pos[:] = -1
+        pos[c - 3] = 7
+    else:
+        pos[:] = -1
+    pos = torch.as_tensor(pos, device=cuda)
+    got = gqa_decode(q, k, v, pos, scale=0.0625, logit_cap=50.0)
+    _close(got, decode_attention_plain(q, k, v, pos, scale=0.0625,
+                                       logit_cap=50.0), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_is_bitwise_repeatable(cuda):
+    """Two launches at gemma2-9b's decode shape give the same bits: the
+    cluster's parts meet in rank order (no atomics)."""
+    q, k, v = _decode_inputs(cuda, 14, 2, 16, 8, 4648, 256, torch.bfloat16)
+    pos = torch.as_tensor(_ring(4640, 4648, 0), device=cuda)
+    first = gqa_decode(q, k, v, pos, scale=0.0625, logit_cap=50.0)
+    second = gqa_decode(q, k, v, pos, scale=0.0625, logit_cap=50.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 # e, c, d, f: the reference's cases, decode's rows (C <= 8), ragged tiles,
 # granite-moe-3b-a800m's experts at decode and prefill
 GMM_CASES = [
@@ -348,12 +417,16 @@ def test_gmm_kernel_refuses_what_it_does_not_take(cuda):
 
 
 # b, s, h, p, g, n, chunk: the reference's cases, a sequence ending inside
-# a tile, two groups at larger dims, zamba2-1.2b's and mamba2-1.3b's heads
+# a tile, two groups at larger dims, zamba2-1.2b's and mamba2-1.3b's heads,
+# zamba2's heads in groups of 2, P = N = 128, and P and N that fill only
+# part of their second 64
 SSD_CASES = [
     (1, 64, 2, 16, 1, 16, 32), (2, 128, 4, 32, 1, 32, 64),
     (1, 128, 4, 16, 2, 16, 32), (1, 256, 2, 64, 1, 64, 128),
     (2, 96, 3, 32, 1, 48, 32), (1, 320, 8, 64, 2, 128, 64),
     (2, 4096, 64, 64, 1, 64, 256), (1, 512, 4, 64, 1, 128, 256),
+    (2, 1024, 8, 64, 4, 64, 256), (1, 512, 4, 128, 2, 128, 256),
+    (1, 300, 2, 96, 1, 80, 100),
 ]
 
 
@@ -394,6 +467,59 @@ def test_ssd_kernel_carries_the_state_across_tiles(cuda):
     assert not torch.allclose(y1[:, 192:], y2[:, 192:])
     torch.testing.assert_close(y2, ssd_plain(x2, dt, A, B, C, chunk=64)[0],
                                atol=2e-4, rtol=2e-4)
+
+
+# b, s, h, p, g, n, chunk: shorter than one of the kernel's chunks, many
+# chunks, a last chunk cut short, groups of 4 heads, 79 chunks (the carry
+# walks them eight at a time)
+SSD_CHUNK_CASES = [
+    (2, 100, 4, 64, 1, 64, 256), (1, 8192, 2, 16, 1, 16, 256),
+    (1, 1344, 3, 32, 1, 48, 64), (2, 768, 8, 32, 2, 32, 256),
+    (1, 1024, 8, 64, 2, 128, 256), (1, 20224, 2, 64, 1, 64, 256),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CHUNK_CASES)
+def test_ssd_kernel_chunk_cuts(cuda, b, s, h, p, g, n, chunk):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((b, s, h, p), generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=cuda))
+    A = -torch.exp(torch.randn((h,), generator=gen, device=cuda) * 0.3)
+    B = torch.randn((b, s, g, n), generator=gen, device=cuda) * 0.5
+    C = torch.randn((b, s, g, n), generator=gen, device=cuda) * 0.5
+    y, st = ssd(x, dt, A, B, C, chunk=chunk)
+    yr, str_ = ssd_plain(x, dt, A, B, C, chunk=chunk)
+    torch.testing.assert_close(y, yr, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(st, str_, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n", [(32, 32), (64, 64)])
+def test_ssd_kernel_carries_the_state_across_chunks(cuda, p, n):
+    """Slow decay over four of the kernel's chunks: the first chunk's input
+    moves the last chunk's output and the final state, through the
+    recurrence over the chunks' states, as in the plain version (P and N
+    filling half of one 64 and all of it)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, s, h = 2, 1024, 4
+    x = torch.randn((b, s, h, p), generator=gen, device=cuda)
+    dt = torch.full((b, s, h), 0.002, device=cuda)
+    A = -torch.ones((h,), device=cuda)
+    B = torch.randn((b, s, 1, n), generator=gen, device=cuda)
+    C = torch.randn((b, s, 1, n), generator=gen, device=cuda)
+    x2 = x.clone()
+    x2[:, :256] = 0
+    for xi in (x, x2):
+        y, st = ssd(xi, dt, A, B, C, chunk=256)
+        yr, str_ = ssd_plain(xi, dt, A, B, C, chunk=256)
+        torch.testing.assert_close(y, yr, atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(st, str_, atol=2e-4, rtol=2e-4)
+    y1, st1 = ssd(x, dt, A, B, C, chunk=256)
+    y2, st2 = ssd(x2, dt, A, B, C, chunk=256)
+    assert not torch.allclose(y1[:, 768:], y2[:, 768:])
+    assert not torch.allclose(st1, st2)
 
 
 @pytest.mark.cuda
