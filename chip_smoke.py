@@ -22,10 +22,13 @@ prompts of 4,096).
 2. build all six kernels (one nvcc per source, in parallel), timed, with
    ptxas' register counts, and any spills or serialised wgmmas by kernel;
 3. ``queue_booking`` against its plain PyTorch version, bitwise, at the
-   engine's stock shape and the reference tests' shapes, timed;
+   engine's stock shape, the reference tests' shapes and the edges of its
+   lane plan, timed, beside its chain model read from the SASS of the
+   built kernel (``cuobjdump``; ``repro_torch.kernels.sass``);
 4. ``maxplus_scan`` against its plain version, bitwise, on integer tapes
    with d != 0 and with d = 0, timed (its device time and the pace of an
-   event-timed loop of launches) beside ``torch.cummax``, a partial
+   event-timed loop of launches) beside the launch floor (an empty
+   kernel, timed as the scan is) and ``torch.cummax``, a partial
    yardstick (the inclusive max of ``off`` alone);
 5. engine: ``QueueFlightSim`` on cuda — stock through the kernel equals
    the scan substrate, raptor through the log-depth kernel route and the
@@ -125,7 +128,6 @@ MAX_LEN2 = PROMPT2 + DECODE_STEPS + 8
 SSD_TOL = (2e-4, 2e-4, math.inf)
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
 # kernel against plain: |got - want| <= atol + rtol |want| at every element
 # and never above ``cap``, the reference kernel tests' bar.  The plain
@@ -210,37 +212,6 @@ def causal_pairs(s: int, window: int) -> int:
     return sum(min(i + 1, w) for i in range(s))
 
 
-def booking_stream(T, N, W, util, dead_tail, seed, dev):
-    """Ready-sorted booking streams like the stock engine's: Poisson-ish
-    ready times at utilisation ``util``, exponential service."""
-    import numpy as np
-    import torch
-    rng = np.random.default_rng(seed)
-    ready = np.sort(rng.uniform(0, N * 100 / (W * util), (T, N)),
-                    axis=1).astype(np.float32)
-    if dead_tail:
-        ready[:, N - dead_tail:] = np.inf
-    service = rng.exponential(100.0, (T, N)).astype(np.float32)
-    wf0 = rng.uniform(0, 300.0, (T, W)).astype(np.float32)
-    return tuple(torch.as_tensor(x, device=dev) for x in (ready, service,
-                                                         wf0))
-
-
-def operator_tape(T, nb, W, diag_free, seed, dev):
-    """Integer-valued operator tapes (exact composes); ``diag_free=False``
-    is the engines' d = 0 shape."""
-    import numpy as np
-    import torch
-    rng = np.random.default_rng(seed)
-    diag = (rng.integers(-20, 20, (T, nb, W)) if diag_free
-            else np.zeros((T, nb, W))).astype(np.float32)
-    off = rng.integers(0, 1000, (T, nb, W)).astype(np.float32)
-    off = np.where(rng.uniform(size=off.shape) < 0.25, -np.inf,
-                   off).astype(np.float32)
-    wf0 = rng.integers(0, 500, (T, W)).astype(np.float32)
-    return tuple(torch.as_tensor(x, device=dev) for x in (diag, off, wf0))
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -257,16 +228,17 @@ def main() -> int:
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention_plain, gqa_decode)
     from repro_torch.kernels.flash_attention.ops import attention_plain, mha
+    from repro_torch.kernels import sass
     from repro_torch.kernels.maxplus_scan.ops import (
         maxplus_entries, maxplus_entries_plain)
     from repro_torch.kernels.moe_gmm.ops import expert_matmul_plain, gmm
     from repro_torch.kernels.ssd_scan.ops import ssd, ssd_plain
-    from repro_torch.kernels.queue_booking.ops import (book_stream,
-                                                       book_stream_plain)
-    from repro_torch.launch.bench_kernels import (DECODE_SHAPES,
-                                                  bench_decode, bench_ssd,
-                                                  copies, decode_sets,
-                                                  graph_ms, loop_ms)
+    from repro_torch.kernels.queue_booking.ops import (
+        book_stream, book_stream_plain, booking_plan, events_per_pass)
+    from repro_torch.launch.bench_kernels import (
+        BATCH, DECODE_SHAPES, bench_decode, bench_ssd, booking_bound_ms,
+        booking_stream, copies, decode_sets, graph_ms, launch_floor_ms,
+        loop_ms, operator_tape, scan_bound_ms)
 
     def cold(*tensors):
         """``tensors`` and enough copies of them to outgrow the L2 twice,
@@ -318,11 +290,13 @@ def main() -> int:
     W = WORKERS
     N = 2 * JOBS                       # keygen's stock stream: K=2 tasks
     for T, n, w, block, dead in [(2, 128, 15, 64, 0), (4, 200, 15, 64, 30),
-                                 (1, 96, 4, 16, 0), (3, 256, 31, 128, 10)]:
+                                 (1, 96, 4, 16, 0), (3, 256, 31, 128, 10),
+                                 (33, 203, 15, 1, 9), (2, 150, 100, 4096, 7),
+                                 (3, 64, 256, 64, 5)]:
         args = booking_stream(T, n, w, 0.8, dead, 0, dev)
         compare(book_stream(*args, block=block), book_stream_plain(*args))
     say("phase 3 queue_booking: bitwise equal to plain at the reference "
-        "test shapes")
+        "test shapes and the lane plan's edges (W = 4, 15, 31, 100, 256)")
     args = booking_stream(TRIALS, N, W, 0.75, 0, 1, dev)
     got = book_stream(*args, block=64)
     want = book_stream_plain(*args)
@@ -331,24 +305,50 @@ def main() -> int:
     k1_ms = graph_ms(lambda: book_stream(*args, block=64), [()], 20)
     k1_plain_ms = loop_ms(lambda: book_stream_plain(*args), [()], 1,
                           warmup=False)
-    k1_bytes = 4 * (TRIALS * N * 5 + TRIALS * W * 2)
-    k1_ops = TRIALS * N * (3 * W + 3)
-    k1_bound = 1e3 * max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_OPS_PER_S)
-    # the chain model: each event's booking depends on the previous one
-    # through ~21 dependent instructions (compare and select the key, five
-    # shuffle-compare-select levels, max, add, compare and select the
-    # worker), each at least 4 cycles, at the card's maximum SM clock
-    k1_chain = 1e3 * N * 21 * 4 / (max_sm_mhz() * 1e6)
-    say(f"phase 3 queue_booking (T={TRIALS}, N={N}, W={W}): bitwise, "
-        f"kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.1f} ms, bound "
-        f"{k1_bound:.6f} ms (bytes), chain model {k1_chain:.4f} ms "
-        f"[{card}]")
-    results["queue_booking_chain_model_ms"] = k1_chain
+    k1_bound = booking_bound_ms(TRIALS, N, W)
+    # Two models of its pace, read from the built kernel's SASS at this
+    # shape's instantiation (its main loop books events_per_pass() events):
+    # the chain (each event's booking depends on the previous one: the
+    # dependent instructions a pass adds to the longest chain, each at
+    # least 4 cycles) and the ALU pipe (its compares, selects and logic,
+    # at one warp instruction every second cycle), both at the card's
+    # maximum SM clock.  Beside them, the chain model of the warp-per-trial
+    # design this kernel replaced: 21 dependent instructions an event (key,
+    # five shuffle-compare-select levels, max, add, select).
+    lanes, slots = booking_plan(W)
+    loop = sass.hottest_loop(sass.function(
+        sass.disassemble("queue_booking"),
+        f"queue_booking_kernelILi{lanes}ELi{slots}ELb{int(N % 4 == 0)}E"))
+    per_pass = events_per_pass()
+    k1_sass = dict(
+        instructions_per_event=len(loop) / per_pass,
+        dependent_per_event=sass.chain(loop) / per_pass,
+        alu_per_event=sass.alu_count(loop) / per_pass,
+        local_memory_per_pass=sum(ins.op.startswith(("LDL", "STL"))
+                                  for ins in loop))
+    hz = max_sm_mhz() * 1e6
+    k1_chain = 1e3 * N * k1_sass["dependent_per_event"] * 4 / hz
+    k1_alu = 1e3 * N * k1_sass["alu_per_event"] * 2 / hz
+    k1_sass.update(chain_model_ms=k1_chain, alu_model_ms=k1_alu,
+                   old_chain_model_ms=1e3 * N * 21 * 4 / hz)
+    say(f"phase 3 queue_booking (T={TRIALS}, N={N}, W={W}; {lanes} lane(s) "
+        f"of {slots} slots a trial): bitwise, kernel {k1_ms:.4f} ms, plain "
+        f"{k1_plain_ms:.1f} ms, bound {k1_bound:.6f} ms (bytes); SASS of "
+        f"its main loop ({per_pass} events a pass): "
+        f"{k1_sass['instructions_per_event']:.2f} instructions an event, "
+        f"{k1_sass['dependent_per_event']:.2f} of them dependent, "
+        f"{k1_sass['alu_per_event']:.2f} on the ALU pipe, "
+        f"{k1_sass['local_memory_per_pass']} local-memory accesses a pass; "
+        f"chain model {k1_chain:.4f} ms (4 cycles each), ALU model "
+        f"{k1_alu:.4f} ms (2 cycles each), at {hz / 1e6:.0f} MHz; the "
+        f"warp-per-trial design's chain model "
+        f"{k1_sass['old_chain_model_ms']:.4f} ms [{card}]")
+    results["queue_booking_sass"] = k1_sass
 
     # ---- 4. maxplus_scan vs plain --------------------------------------
     nb = LOGDEPTH_NB
     for T, b, w in [(2, 1, 15), (2, 8, 15), (3, 5, 15), (4, 13, 7),
-                    (1, 32, 1), (2, 48, 31)]:
+                    (1, 32, 1), (2, 48, 31), (2, 700, 3), (1, 1025, 2)]:
         for diag_free in (True, False):
             tape = operator_tape(T, b, w, diag_free, 0, dev)
             compare(maxplus_entries(*tape), maxplus_entries_plain(*tape))
@@ -361,19 +361,28 @@ def main() -> int:
     # the device's time (the calls replayed as a CUDA graph, on the one
     # tape, as the engine hands it over just written) and the event loop's
     # pace, which also holds the host's work between launches
-    k2_ms = graph_ms(lambda: maxplus_entries(*tape0), [()], 200)
-    k2_loop_ms = loop_ms(lambda: maxplus_entries(*tape0), [()], 200)
+    # device time: BATCH calls captured in one graph, run back to back;
+    # beside it one call a replay, where the replay's own cost can exceed
+    # the kernel's; each beside an empty kernel launched and timed the same
+    # way (the launch floor)
+    k2_call = lambda: maxplus_entries(*tape0)  # noqa: E731
+    k2_ms = graph_ms(k2_call, [()] * BATCH, 20)
+    k2_floor = launch_floor_ms(20, BATCH)
+    k2_graph1 = graph_ms(k2_call, [()], 200)
+    k2_floor1 = launch_floor_ms(200)
+    k2_loop_ms = loop_ms(k2_call, [()], 200)
     k2_plain_ms = loop_ms(lambda: maxplus_entries_plain(*tape0), [()], 50)
-    cummax_ms = graph_ms(lambda: torch.cummax(tape0[1], dim=1), [()], 200)
-    k2_bytes = 4 * (3 * TRIALS * nb * W + 2 * TRIALS * W)
-    k2_ops = TRIALS * W * (3 * nb * math.ceil(math.log2(nb)) + 2 * nb)
-    k2_bound = 1e3 * max(k2_bytes / HBM_BYTES_PER_S, k2_ops / FP32_OPS_PER_S)
+    cummax_ms = graph_ms(lambda: torch.cummax(tape0[1], dim=1),
+                         [()] * BATCH, 20)
+    k2_bound = scan_bound_ms(TRIALS, nb, W)
     say(f"phase 4 maxplus_scan (T={TRIALS}, nb={nb}, W={W}): bitwise on "
-        f"d!=0 and d=0 tapes, kernel {k2_ms:.5f} ms on the device "
-        f"(graph), {k2_loop_ms:.4f} ms a launch in an event-timed loop, "
-        f"plain "
-        f"{k2_plain_ms:.4f} ms, torch.cummax {cummax_ms:.4f} ms, bound "
-        f"{k2_bound:.6f} ms (bytes) [{card}]")
+        f"d!=0 and d=0 tapes; device {k2_ms:.5f} ms a call ({BATCH} in a "
+        f"graph), {k2_ms / k2_floor:.2f}x the launch floor (an empty "
+        f"kernel so timed: {k2_floor:.5f} ms); one call a graph replay "
+        f"{k2_graph1:.5f} ms, floor {k2_floor1:.5f} ms; {k2_loop_ms:.4f} "
+        f"ms a launch in an event-timed loop, plain {k2_plain_ms:.4f} ms, "
+        f"torch.cummax {cummax_ms:.5f} ms, bound {k2_bound:.7f} ms (bytes) "
+        f"[{card}]")
 
     # ---- 5. engine -------------------------------------------------------
     wl = keygen_queue()
@@ -1086,14 +1095,16 @@ def main() -> int:
          "replaces": "src/repro/kernels/queue_booking/kernel.py:80",
          "launches": launches["queue_booking"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "chain_model_ms": k1_chain, "alu_model_ms": k1_alu},
         {"name": "maxplus_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/maxplus_scan.cu",
          "replaces": "src/repro/kernels/maxplus_scan/kernel.py:57",
          "launches": launches["maxplus_scan"], "max_abs_err": k2_err,
          "ms": k2_ms, "loop_ms": k2_loop_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": "bytes", "library_ms": None,
-         "yardstick_ms": cummax_ms,
+         "floor_ms": k2_floor, "graph1_ms": k2_graph1,
+         "floor1_ms": k2_floor1, "yardstick_ms": cummax_ms,
          "yardstick": "torch.cummax of off alone (the inclusive max "
                       "prefix): no PyTorch call computes the kernel's "
                       "exclusive entries and exit vector"},

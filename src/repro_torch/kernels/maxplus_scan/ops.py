@@ -8,9 +8,11 @@ identity ``(0, -inf)``.  For each trial's tape of ``nb`` operators the
 result is every block's entry vector (row 0 is ``wf0``) and the whole
 tape applied to ``wf0``.
 
-On this card the kernel is bound by bytes (the tape is read once, the
-entries written once); ``csrc/maxplus_scan.cu`` keeps one trial's tape in
-shared memory and runs the Hillis-Steele doubling sweeps there.  Both the
+On this card the kernel is bound by its launch (the tape is a few KB at
+the engine's shapes); ``csrc/maxplus_scan.cu`` scans each (trial,
+worker) column in registers, :func:`scan_plan`'s lanes of one warp, with
+shuffles and no barrier, and runs tapes too long for that in one CTA's
+shared memory.  Both the
 kernel and :func:`maxplus_entries_plain` run the same doubling sweeps
 with the same per-element adds and maxes, so they are bitwise equal on
 any input; against a sequential fold or an associative-scan tree they
@@ -22,20 +24,47 @@ plain version only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels._build import library
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+#: longest tape the register kernel scans: 32 lanes of 32 registers
+REG_BLOCKS = 32 * 32
 
 
-def _lib():
+def scan_plan(nb: int):
+    """(lanes per column, registers per lane) of the register kernel for a
+    tape of ``nb`` blocks: the fewest lanes (a power of two, up to a warp)
+    that hold the tape one block each, then the fewest registers (a power
+    of two) per lane of a whole warp; ``(0, 0)`` past ``REG_BLOCKS``, where
+    the shared-memory kernel runs."""
+    if nb < 1:
+        raise ValueError("the tape needs at least one block operator")
+    if nb > REG_BLOCKS:
+        return 0, 0
+    if nb <= 32:
+        return 1 << (nb - 1).bit_length(), 1
+    return 32, 1 << ((nb + 31) // 32 - 1).bit_length()
+
+
+@functools.cache
+def _launcher():
+    """The library's launch functions, bound once, and its size limit."""
     lib = library("maxplus_scan")
-    lib.maxplus_scan_launch.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+    lib.maxplus_scan_launch.argtypes = [_P] * 5 + [_I] * 5 + [_P]
     lib.maxplus_scan_launch.restype = _I
+    lib.maxplus_scan_noop_launch.argtypes = [_P]
+    lib.maxplus_scan_noop_launch.restype = _I
     lib.maxplus_scan_max_elems.restype = _I
-    return lib
+    lib.maxplus_scan_max_reg_blocks.restype = _I
+    if lib.maxplus_scan_max_reg_blocks() != REG_BLOCKS:
+        raise RuntimeError("csrc/maxplus_scan.cu and scan_plan disagree on "
+                           "the register kernel's longest tape")
+    return (lib.maxplus_scan_launch, lib.maxplus_scan_noop_launch,
+            lib.maxplus_scan_max_elems())
 
 
 def maxplus_entries_plain(diag, off, wf0):
@@ -89,18 +118,19 @@ def maxplus_entries(diag, off, wf0):
     if diag.device.type != "cuda":
         raise ValueError(f"maxplus_entries runs on cuda or cpu, not "
                          f"{diag.device}")
-    lib = _lib()
+    launch, _, max_elems = _launcher()
     T, nb, W = diag.shape
-    if nb * W > lib.maxplus_scan_max_elems():
+    if nb * W > max_elems:
         raise ValueError(
-            f"nb * W = {nb * W} exceeds the {lib.maxplus_scan_max_elems()} "
-            f"elements one CTA's shared memory holds")
+            f"nb * W = {nb * W} exceeds the {max_elems} elements one CTA's "
+            f"shared memory holds")
+    lanes, regs = scan_plan(nb)
     entries = torch.empty_like(diag)
     wf_out = torch.empty_like(wf0)
     stream = torch.cuda.current_stream(diag.device).cuda_stream
-    err = lib.maxplus_scan_launch(
-        diag.data_ptr(), off.data_ptr(), wf0.data_ptr(), entries.data_ptr(),
-        wf_out.data_ptr(), T, nb, W, stream)
+    err = launch(diag.data_ptr(), off.data_ptr(), wf0.data_ptr(),
+                 entries.data_ptr(), wf_out.data_ptr(), T, nb, W, lanes,
+                 regs, stream)
     if err != 0:
         raise RuntimeError(f"maxplus_scan launch failed: CUDA error {err}")
     maxplus_entries.launches += 1
@@ -109,3 +139,13 @@ def maxplus_entries(diag, off, wf0):
 
 #: kernel launches since the count was last set to 0
 maxplus_entries.launches = 0
+
+
+def noop_launch(device=None):
+    """Launch the library's empty kernel (one warp) on the current stream
+    of ``device``, as :func:`maxplus_entries` launches the scan: the launch
+    floor its device time is held against.  Counted nowhere."""
+    _, noop, _ = _launcher()
+    err = noop(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"no-op launch failed: CUDA error {err}")

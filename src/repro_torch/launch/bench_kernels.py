@@ -1,9 +1,16 @@
-"""Time the decode-attention and SSD-scan kernels at the served shapes.
+"""Time the port's kernels at the shapes their paths give them.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_kernels \
-        [--reps 20] [--only ssd_scan] [--ssd-lengths 4096,32768] \
-        [--out bench_kernels.json]
+        [--reps 20] [--only queue_booking,maxplus_scan] \
+        [--ssd-lengths 4096,32768] [--out bench_kernels.json]
 
+``book_stream`` (K1) at the stock engine's stream (T=32 trials, N=21,316
+events, W=15 workers) and ``maxplus_entries`` (K2) at the raptor
+log-depth route's tape (T=32, nb=16, W=15), each on the one input the
+engine has just written, beside the launch floor: an empty kernel
+launched as K2 is, timed the same way (the ops module's ``noop_launch``;
+``null`` for a checkout without it); and K1 under other lane plans than
+the wrapper's (``K1_PLANS``), each with its SASS counts.
 ``gqa_decode`` (K4) at the decode shapes of the three served models, bf16,
 B=2: gemma2-9b (16 q / 8 kv heads of 256; a global layer's cache of
 4,648 slots and a local layer's ring of 4,096, logit cap 50, and both at
@@ -20,9 +27,11 @@ timed twice: as a CUDA graph of the loop replayed between CUDA events
 the loop itself between events (``loop_ms``: where the host takes longer
 to launch a call than the device to run it, that is the host's pace).
 Each row carries its bound, the larger of two times: the bytes it must
-move (inputs once, output once) at 3.35 TB/s, and for K6 the plain
-recurrence's operations (5 P N per step and head) at the rate of the
-units that run them, the tensor cores' TF32 rate over three (3xTF32).
+move (inputs once, output once) at 3.35 TB/s, and the operations: for K6
+the plain recurrence's (5 P N per step and head) at the rate of the
+units that run them, the tensor cores' TF32 rate over three (3xTF32);
+for K1 and K2 their compares, selects, maxes and adds at float32's
+67 TFLOP/s.
 
 The script uses only the kernels' public wrappers, so it also times an
 older checkout of the package: put that checkout's ``src`` on
@@ -41,9 +50,14 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 TF32_OPS_PER_S = 495e12      # H100 SXM, dense TF32 tensor cores
+FP32_OPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 L2_BYTES = 50e6
 PROMPT, DECODE_STEPS = 4608, 32
 PROMPT2 = 4096               # granite's and zamba2's prompts
+# the scheduler's main path: 32 trials of fig6's stream (10,658 jobs of 2
+# tasks) on the HA deployment's 15 workers; its log-depth route's 16 blocks
+SCHED_TRIALS, SCHED_EVENTS, SCHED_WORKERS, SCHED_BLOCKS = 32, 21316, 15, 16
+BATCH = 50                   # short kernels' calls captured in one graph
 # (name, Hq, Hkv, D, cache slots, window of the ring or 0, logit cap,
 # prompt): the caches of the served runs, late in their decode
 DECODE_SHAPES = [
@@ -111,6 +125,140 @@ def graph_ms(fn, sets, reps: int) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / (reps * len(sets))
+
+
+def booking_stream(T, N, W, util, dead_tail, seed, dev):
+    """Ready-sorted booking streams like the stock engine's: Poisson-ish
+    ready times at utilisation ``util``, exponential service."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ready = np.sort(rng.uniform(0, N * 100 / (W * util), (T, N)),
+                    axis=1).astype(np.float32)
+    if dead_tail:
+        ready[:, N - dead_tail:] = np.inf
+    service = rng.exponential(100.0, (T, N)).astype(np.float32)
+    wf0 = rng.uniform(0, 300.0, (T, W)).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=dev) for x in (ready, service,
+                                                         wf0))
+
+
+def operator_tape(T, nb, W, diag_free, seed, dev):
+    """Integer-valued operator tapes (exact composes); ``diag_free=False``
+    is the engines' d = 0 shape."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    diag = (rng.integers(-20, 20, (T, nb, W)) if diag_free
+            else np.zeros((T, nb, W))).astype(np.float32)
+    off = rng.integers(0, 1000, (T, nb, W)).astype(np.float32)
+    off = np.where(rng.uniform(size=off.shape) < 0.25, -np.inf,
+                   off).astype(np.float32)
+    wf0 = rng.integers(0, 500, (T, W)).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=dev) for x in (diag, off, wf0))
+
+
+def booking_bound_ms(T, N, W) -> float:
+    """K1's bound: 5 floats per event moved (ready, service in; fin, start,
+    worker out) and the W-vector in and out, or its 3 W + 3 compares,
+    selects and adds per event at float32's rate, whichever is longer."""
+    nbytes = 4 * (T * N * 5 + T * W * 2)
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                     T * N * (3 * W + 3) / FP32_OPS_PER_S)
+
+
+def scan_bound_ms(T, nb, W) -> float:
+    """K2's bound: the tape (d, b) in and the entries out, wf0 in and the
+    exit vector out, or its sweeps' adds and maxes at float32's rate."""
+    nbytes = 4 * (3 * T * nb * W + 2 * T * W)
+    ops = T * W * (3 * nb * math.ceil(math.log2(max(nb, 2))) + 2 * nb)
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
+
+
+def launch_floor_ms(reps: int, batch: int = 1):
+    """Device time per launch of an empty kernel launched as K2 is, by
+    graph replay of ``batch`` launches (None where the package has no
+    ``noop_launch``)."""
+    try:
+        from repro_torch.kernels.maxplus_scan.ops import noop_launch
+    except ImportError:
+        return None
+    return graph_ms(noop_launch, [()] * batch, reps)
+
+
+# K1 at W = 15 under other (lanes, slots) plans than booking_plan's one
+# lane of 15: a trial's workers over more lanes, with shuffles on the chain
+K1_PLANS = [(1, 16), (2, 8), (4, 4), (8, 2), (16, 1)]
+
+
+def booking_plans(args, reps: int) -> list:
+    """K1 on ``args`` under each of ``K1_PLANS`` through the library's
+    launcher (bitwise against ``book_stream``), with the SASS counts of
+    each instantiation's main loop; empty for a checkout without them."""
+    try:
+        from repro_torch.kernels import sass
+        from repro_torch.kernels.queue_booking.ops import (
+            _launcher, book_stream, events_per_pass)
+    except ImportError:
+        return []
+    launch, _ = _launcher()
+    ready, service, wf0 = args
+    T, N = ready.shape
+    W = wf0.shape[1]
+    want = book_stream(*args)
+    text = sass.disassemble("queue_booking")
+    rows = []
+    for lanes, slots in K1_PLANS:
+        out = (torch.empty_like(ready), torch.empty_like(ready),
+               torch.empty((T, N), dtype=torch.int32, device=ready.device),
+               torch.empty_like(wf0))
+
+        def call():
+            err = launch(*(x.data_ptr() for x in args + out), T, N, W, 64,
+                         lanes, slots, torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"queue_booking launch failed: {err}")
+        call()
+        loop = sass.hottest_loop(sass.function(
+            text, f"queue_booking_kernelILi{lanes}ELi{slots}ELb"
+                  f"{int(N % 4 == 0)}E"))
+        rows.append(dict(
+            lanes=lanes, slots=slots, ms=graph_ms(call, [()], reps),
+            bitwise=all(bool(torch.equal(a, b)) for a, b in zip(out, want)),
+            dependent_per_event=sass.chain(loop) / events_per_pass(),
+            alu_per_event=sass.alu_count(loop) / events_per_pass()))
+    return rows
+
+
+def bench_booking(reps: int, dev) -> dict:
+    from repro_torch.kernels.queue_booking.ops import book_stream
+    T, N, W = SCHED_TRIALS, SCHED_EVENTS, SCHED_WORKERS
+    args = booking_stream(T, N, W, 0.75, 0, 1, dev)
+    kern = lambda: book_stream(*args, block=64)  # noqa: E731
+    return dict(shape="stock stream", T=T, N=N, W=W,
+                ms=graph_ms(kern, [()], reps),
+                loop_ms=loop_ms(kern, [()], max(2, reps // 4)),
+                bound_ms=booking_bound_ms(T, N, W), bound_by="bytes",
+                plans=booking_plans(args, reps))
+
+
+def bench_scan(reps: int, dev) -> dict:
+    """K2 timed two ways, each beside the launch floor timed the same way:
+    ``ms``, ``BATCH`` calls captured in one graph, so that the device runs
+    them back to back (its time per call, gaps between kernels included);
+    ``graph1_ms``, one call per graph replay, where the replay's own cost
+    on the host can exceed a short kernel's."""
+    from repro_torch.kernels.maxplus_scan.ops import maxplus_entries
+    T, nb, W = SCHED_TRIALS, SCHED_BLOCKS, SCHED_WORKERS
+    tape = operator_tape(T, nb, W, False, 3, dev)
+    kern = lambda: maxplus_entries(*tape)  # noqa: E731
+    ms = graph_ms(kern, [()] * BATCH, reps)
+    floor = launch_floor_ms(reps, BATCH)
+    return dict(shape="raptor log-depth tape", T=T, nb=nb, W=W, ms=ms,
+                floor_ms=floor,
+                over_floor=None if floor is None else ms / floor,
+                graph1_ms=graph_ms(kern, [()], 10 * reps),
+                floor1_ms=launch_floor_ms(10 * reps),
+                loop_ms=loop_ms(kern, [()], 10 * reps),
+                bound_ms=scan_bound_ms(T, nb, W), bound_by="bytes")
 
 
 def copies(nbytes: int) -> int:
@@ -200,11 +348,15 @@ def bench_ssd(reps: int, dev, batch: int = 2, s: int = 4096, h: int = 64,
     return row
 
 
+KERNELS = ("queue_booking", "maxplus_scan", "decode_attention", "ssd_scan")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=("decode_attention", "ssd_scan"),
-                    default=None, help="time one of the two kernels")
+    ap.add_argument("--only", default=",".join(KERNELS),
+                    help="comma-separated kernels to time, of "
+                         + ", ".join(KERNELS))
     ap.add_argument("--ssd-lengths", default="4096",
                     help="comma-separated sequence lengths for K6")
     ap.add_argument("--label", default="")
@@ -215,13 +367,39 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda")
     name = card()
-    out = dict(label=args.label, card=name, decode_attention=[],
-               ssd_scan=[])
-    if args.only != "ssd_scan":
+    only = args.only.split(",")
+    unknown = set(only) - set(KERNELS)
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}")
+    out = dict(label=args.label, card=name,
+               **{k: [] for k in KERNELS})
+    if "queue_booking" in only:
+        out["queue_booking"] = [bench_booking(args.reps, dev)]
+    if "maxplus_scan" in only:
+        out["maxplus_scan"] = [bench_scan(args.reps, dev)]
+    if "decode_attention" in only:
         out["decode_attention"] = bench_decode(args.reps, dev)
-    if args.only != "decode_attention":
+    if "ssd_scan" in only:
         out["ssd_scan"] = [bench_ssd(max(2, args.reps // 4), dev, s=int(s))
                            for s in args.ssd_lengths.split(",")]
+    for r in out["queue_booking"]:
+        print(f"queue_booking {r['shape']} (T={r['T']}, N={r['N']}, "
+              f"W={r['W']}): graph {r['ms']:.5f} ms; event loop "
+              f"{r['loop_ms']:.5f} ms; bound {r['bound_ms']:.6f} ms "
+              f"(bytes) [{name}]", flush=True)
+        for p in r["plans"]:
+            print(f"queue_booking plan {p['lanes']} lane(s) x {p['slots']} "
+                  f"slots: graph {p['ms']:.5f} ms, bitwise {p['bitwise']}; "
+                  f"SASS an event: {p['dependent_per_event']:.2f} "
+                  f"dependent, {p['alu_per_event']:.2f} on the ALU pipe "
+                  f"[{name}]", flush=True)
+    for r in out["maxplus_scan"]:
+        print(f"maxplus_scan {r['shape']} (T={r['T']}, nb={r['nb']}, "
+              f"W={r['W']}): graph of {BATCH} {r['ms']:.5f} ms (launch "
+              f"floor {r['floor_ms']}); graph of one {r['graph1_ms']:.5f} "
+              f"ms (floor {r['floor1_ms']}); event loop "
+              f"{r['loop_ms']:.5f} ms; bound {r['bound_ms']:.7f} ms "
+              f"(bytes) [{name}]", flush=True)
     for row in out["decode_attention"]:
         print(f"decode_attention {row['shape']} (C={row['C']}, "
               f"{row['copies']} caches): graph {row['ms']:.5f} ms "

@@ -45,6 +45,13 @@ BOOK_CASES = [(2, 128, 15, 64, 0), (4, 200, 15, 64, 30), (1, 96, 4, 16, 0),
               (32, 4096, 15, 64, 0)]
 SCAN_CASES = [(2, 1, 15), (2, 8, 15), (3, 5, 15), (4, 13, 7), (1, 32, 1),
               (2, 48, 31), (32, 64, 15), (2, 700, 20)]
+# the lane plan's edges: one lane up to 16 workers, then 2, 4, 8, 16
+BOOK_EDGE_W = [1, 15, 16, 17, 31, 32, 33, 100, 256]
+# the register scan's edges (lanes and registers per lane change at
+# powers of two up to 1,024 blocks, shared memory past that) and the
+# launcher's limit, nb * W = 14,528
+SCAN_EDGES = [(2, nb, 3) for nb in (1, 16, 31, 32, 33, 64, 700, 1024, 1025)
+              ] + [(1, 14528, 1), (1, 968, 15)]
 
 
 def make_stream(seed, T, N, W, util=0.8, dead_tail=0):
@@ -58,9 +65,11 @@ def make_stream(seed, T, N, W, util=0.8, dead_tail=0):
     return ready, service, wf0
 
 
-def make_tape(seed, T, nb, W, diag_free=True, p_ninf=0.25):
+def make_tape(seed, T, nb, W, diag_free=True, p_ninf=0.25, exact=True):
     rng = np.random.default_rng(seed)
-    if diag_free:
+    if diag_free and not exact:
+        diag = rng.normal(0.0, 10.0, (T, nb, W)).astype(np.float32)
+    elif diag_free:
         diag = rng.integers(-20, 20, (T, nb, W)).astype(np.float32)
     else:
         diag = np.zeros((T, nb, W), np.float32)
@@ -124,6 +133,55 @@ def test_book_kernel_tile_invariance(cuda):
     for block in (32, 64, 333, 4096):
         for a, b in zip(base, book_stream(*args, block=block)):
             _eq(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1, 64, 4096])
+@pytest.mark.parametrize("W", BOOK_EDGE_W)
+def test_book_kernel_lane_plan_edges_on_card(cuda, W, block):
+    """T = 33 (a warp and one more trial), a dead tail, and N = 200 + W %
+    4: rows that are 16-byte aligned (vector loads) and rows that are not,
+    a last pass short of a whole group."""
+    args = booking_stream_from_numpy(*make_stream(
+        W, 33, 200 + W % 4, W, dead_tail=7), cuda)
+    got = book_stream(*args, block=block)
+    for g, p in zip(got, book_stream_plain(*args)):
+        _eq(g, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 5, 8, 9])
+def test_book_kernel_short_streams_on_card(cuda, N):
+    """Streams shorter than a group of events, one group, one past it."""
+    args = booking_stream_from_numpy(*make_stream(1, 3, N, 15), cuda)
+    for g, p in zip(book_stream(*args), book_stream_plain(*args)):
+        _eq(g, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tape", ["integer", "d = 0", "inexact"])
+@pytest.mark.parametrize("T,nb,W", SCAN_EDGES)
+def test_scan_kernel_edges_on_card(cuda, T, nb, W, tape):
+    """Bitwise also on inexact tapes (d drawn from a normal): the kernel
+    runs the plain version's doubling sweeps in the same association."""
+    diag, off, wf0 = (torch.as_tensor(x, device=cuda) for x in make_tape(
+        nb, T, nb, W, diag_free=tape != "d = 0", exact=tape != "inexact"))
+    got = maxplus_entries(diag, off, wf0)
+    for g, p in zip(got, maxplus_entries_plain(diag, off, wf0)):
+        _eq(g, p)
+
+
+@pytest.mark.cuda
+def test_scheduling_kernels_are_bitwise_repeatable(cuda):
+    """Two launches of each on the same inputs, at the main path's
+    shapes."""
+    args = booking_stream_from_numpy(*make_stream(2, 32, 4096, 15), cuda)
+    for a, b in zip(book_stream(*args), book_stream(*args)):
+        _eq(a, b)
+    tape = [torch.as_tensor(x, device=cuda)
+            for x in make_tape(3, 32, 16, 15, exact=False)]
+    for a, b in zip(maxplus_entries(*tape), maxplus_entries(*tape)):
+        _eq(a, b)
 
 
 # b, hq, hkv, sq, sk, d, causal, window, cap: the reference kernel tests'
