@@ -77,8 +77,30 @@ prompts of 4,096).
    per decode step; the flight; every ssd_scan call of the wiring run
    within 2e-4 of its plain version, every attention call within the
    bf16 bar; the float32 logits as phase 12's;
-14. one JSON line listing each kernel (launches on its path, error
-   against the plain version, times, bound, library time).  Every
+14. fault engine: ``QueueFlightSim`` in fault mode at phase 5's size
+   (keygen @ high, 15 workers / 3 AZs, 10,658 jobs x 32 trials) under one
+   correlated brownout process (fault_sweep's: up 24 s, down 6 s, service
+   x3), degraded errors (0.05) and worker crashes (every ~30 s, 200 ms
+   outages), tables of 256 cycles (coverage checked against twice the
+   replay's end), and a timeout / jittered retry / hedge policy: raptor
+   through the ``maxplus_scan`` route (log-depth, 16 blocks) and stock
+   through its default route at full width; raptor's ``maxplus_scan``
+   route against the sequential chain, bitwise at full width, and
+   stock's against its default route, bitwise on a 2,000-job stream of
+   32 trials (stock's ``maxplus_scan`` route takes ~420 s at full width),
+   with ``maxplus_scan``'s launches on each; the run-pair summary with
+   fail rates and every wall;
+15. fault service: ``SchedulerService`` on the ``maxplus_scan`` route
+   under phase 6's MMPP traffic and phase 14's faults, with the streaming
+   ``oracle_check`` (the stream's fault tables, runs and traces) bitwise;
+16. open-loop engine: ``VectorFlightSim.run_pair`` at 40,000 trials —
+   keygen within 0.06 of Table 7's 0.647, rho=0 exponential within 0.05
+   of 2/3, ``reliability_vector(2, 0.3)`` and ``(4, 0.2)`` fail rates
+   within 0.02 of the closed forms — and fault_sweep's i.i.d. and
+   correlated open-loop rows beside ``mixture_speedup_prediction``;
+17. one JSON line listing each kernel (launches on its path, error
+   against the plain version, times, bound, library time; for
+   ``maxplus_scan`` also its launches on the fault paths).  Every
    kernel's ``ms`` and ``library_ms`` is the device's time: a CUDA graph
    of the calls replayed between CUDA events (``graph_ms``), inputs cold
    (copies that outgrow the L2, in turn) for the LM kernels, and for the
@@ -86,7 +108,7 @@ prompts of 4,096).
    (``maxplus_scan``, ``decode_attention``, ``ssd_scan``) is the pace of
    an event-timed loop of calls, which the host sets for short kernels,
    and ``plain_ms`` is timed so too;
-15. the last line: ``{"ok": true, "device": {...}}``.
+18. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.  A copy
@@ -126,6 +148,22 @@ PROMPT2 = 4096
 MAX_LEN2 = PROMPT2 + DECODE_STEPS + 8
 # ssd_scan against plain: the reference kernel test's bar (atol, rtol)
 SSD_TOL = (2e-4, 2e-4, math.inf)
+# the fault path: a correlated AZ brownout process (fault_sweep's, with
+# degraded errors) plus worker crashes, and a timeout / jittered retry /
+# hedge policy; table widths cover the 1,800 s stream's replay (~2,000 s
+# with its backlog) at least twice: 256 cycles of ~30 s each
+FAULT_PROFILE = dict(az_mtbf_ms=24_000.0, az_mttr_ms=6_000.0,
+                     degraded_inflation=3.0, correlated=True,
+                     degraded_fail_prob=0.05, crash_mtbf_ms=30_000.0,
+                     crash_restart_ms=200.0, max_intervals=256,
+                     max_crashes=256)
+FAULT_POLICY = dict(timeout_ms=6_000.0, max_retries=1, backoff_ms=50.0,
+                    backoff_jitter=0.5, hedge_ms=4_000.0)
+# the stock K2 route's block (250 blocks of the 63,948 attempt slots);
+# stock's routes are compared on a stream of FAULT_CHECK_JOBS jobs
+FAULT_STOCK_BLOCK = 256
+FAULT_CHECK_JOBS = 2000
+OPEN_LOOP_TRIALS = 40_000
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
@@ -210,6 +248,219 @@ def causal_pairs(s: int, window: int) -> int:
     """(query, key) pairs a causal prefill of ``s`` tokens attends to."""
     w = window or s
     return sum(min(i + 1, w) for i in range(s))
+
+
+def fault_engine_phase(dev, card, jobs=JOBS, trials=TRIALS,
+                       check_jobs=FAULT_CHECK_JOBS) -> dict:
+    """Phase 14: ``QueueFlightSim`` in fault mode on the card.  Raptor
+    at full width through the K2 route (log-depth,
+    ``summary_backend="kernel"``), held bitwise to the sequential chain at
+    the same size, and stock through its default route, with the run-pair
+    summary, fail rates and every wall; then stock's K2 route against its
+    default route (the auto route), bitwise, on a ``check_jobs``-job
+    stream of as many trials.  K2's launches are counted on each fault
+    path.  The stock K2 route at full width takes 423 s against the auto
+    route's 94 s on an H100 80GB HBM3 at 700 W, so stock's full-width run
+    takes the auto route and its K2 route is compared at the cut
+    depth."""
+    import torch
+    from repro_torch.kernels.maxplus_scan.ops import maxplus_entries
+    from repro_torch.sim.faults import FaultProfile
+    from repro_torch.sim.policies import RecoveryPolicy
+    from repro_torch.sim.vector_queue import QueueFlightSim, keygen_queue
+    fp = FaultProfile(**FAULT_PROFILE)
+    pol = RecoveryPolicy(**FAULT_POLICY)
+    wl = keygen_queue(faults=fp, recovery=pol)
+    kw = dict(num_workers=WORKERS, num_azs=AZS, load=LOAD, seed=0,
+              device=dev)
+
+    def k2(engine, n):
+        block = n // LOGDEPTH_NB if engine == "raptor" else FAULT_STOCK_BLOCK
+        return QueueFlightSim(wl, scan="logdepth", block=block,
+                              summary_backend="kernel", **kw)
+    default = {"raptor": QueueFlightSim(wl, scan="seq", **kw),
+               "stock": QueueFlightSim(wl, **kw)}
+    horizon = jobs * 1000.0 / default["raptor"].rate_hz
+    say(f"phase 14 fault engine: keygen @ {LOAD}, {WORKERS} workers / {AZS} "
+        f"AZs, {jobs} jobs x {trials} trials; {fp}; {pol}; K2 routes "
+        f"raptor {k2('raptor', jobs).engine_config('raptor')}, stock "
+        f"{k2('stock', jobs).engine_config('stock')}; default routes raptor "
+        f"{default['raptor'].engine_config('raptor')}, stock "
+        f"{default['stock'].engine_config('stock')}; table coverage "
+        f"{fp.coverage_ms():.0f} ms, arrivals span ~{horizon:.0f} ms")
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    maxplus_entries.launches = 0
+    runs = {"raptor": timed("raptor_logdepth_kernel", lambda: k2(
+        "raptor", jobs).run(jobs, trials, raptor=True))}
+    launches = {"raptor": maxplus_entries.launches}
+    seq = timed("raptor_seq", lambda: default["raptor"].run(
+        jobs, trials, raptor=True))
+    compare((runs["raptor"].response_ms, runs["raptor"].ok),
+            (seq.response_ms, seq.ok))
+    runs["stock"] = timed("stock_auto", lambda: default["stock"].run(
+        jobs, trials, raptor=False))
+    for eng, r in runs.items():
+        good = r.response_ms[r.ok]
+        if r.response_ms.shape != (trials, jobs) or not bool(
+                torch.isfinite(good).all()) or not bool((good > 0).all()):
+            raise AssertionError(f"{eng}: bad responses")
+    # the replay must stay inside the drawn tables, twice over (a stock
+    # task whose retry the bounded fixed point left unscheduled ends at
+    # inf and counts as failed, as in the reference)
+    end = horizon * 1.05 + max(
+        float(r.response_ms[torch.isfinite(r.response_ms)].max())
+        for r in runs.values())
+    if fp.coverage_ms() < 2.0 * end:
+        raise AssertionError(f"fault tables cover {fp.coverage_ms()} ms, "
+                             f"less than twice the replay's ~{end} ms")
+    maxplus_entries.launches = 0
+    a = timed(f"stock_logdepth_kernel_{check_jobs}", lambda: k2(
+        "stock", check_jobs).run(check_jobs, trials, raptor=False))
+    launches[f"stock_{check_jobs}_jobs"] = maxplus_entries.launches
+    b = timed(f"stock_auto_{check_jobs}", lambda: default["stock"].run(
+        check_jobs, trials, raptor=False))
+    compare((a.response_ms, a.ok), (b.response_ms, b.ok))
+    say(f"phase 14 fault engine maxplus_scan launches on the K2 routes: "
+        f"{launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"maxplus_scan never launched on a fault path: "
+                             f"{launches}")
+    pair = {"stock": runs["stock"].summary(),
+            "raptor": runs["raptor"].summary()}
+    pair["mean_ratio"] = pair["raptor"]["mean"] / pair["stock"]["mean"]
+    if not (0.0 < pair["raptor"]["fail_rate"] < 0.5
+            and 0.0 < pair["stock"]["fail_rate"] < 0.5):
+        raise AssertionError(f"fail rates out of range: {pair}")
+    say(f"phase 14 fault engine: raptor K2 route == sequential chain, "
+        f"bitwise on {jobs} jobs x {trials} trials; stock K2 route == auto "
+        f"route, bitwise on {check_jobs} jobs x {trials} trials; replay "
+        f"ends by ~{end:.0f} ms, tables cover "
+        f"{fp.coverage_ms():.0f} ms")
+    for eng in ("stock", "raptor"):
+        s = pair[eng]
+        say(f"phase 14 run_pair {eng}: mean {s['mean']:.1f} ms, p50 "
+            f"{s['median']:.1f} ms, p99 {s['p99']:.1f} ms, fail rate "
+            f"{s['fail_rate']:.5f} (n {s['n']}, failed {s['n_failed']})")
+    say(f"phase 14 run_pair mean_ratio {pair['mean_ratio']:.4f}; wall s "
+        + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+        + f" [{card}]")
+    return dict(walls_s=walls, run_pair=pair, launches=launches,
+                check_jobs=check_jobs, coverage_ms=fp.coverage_ms(),
+                replay_end_ms=end)
+
+
+def fault_service_phase(dev, card, jobs=SERVICE_JOBS) -> dict:
+    """Phase 15: ``SchedulerService`` in fault mode on the K2 route under
+    phase 6's MMPP traffic; the streaming ``oracle_check`` (with the
+    stream's fault tables) bitwise."""
+    from repro_torch.kernels.maxplus_scan.ops import maxplus_entries
+    from repro_torch.serving.engine import SchedulerService
+    from repro_torch.sim.events import MMPPArrivals
+    from repro_torch.sim.faults import FaultProfile
+    from repro_torch.sim.policies import RecoveryPolicy
+    from repro_torch.sim.streaming import oracle_check
+    from repro_torch.sim.vector_queue import QueueFlightSim, keygen_queue
+    wl = keygen_queue(faults=FaultProfile(**FAULT_PROFILE),
+                      recovery=RecoveryPolicy(**FAULT_POLICY))
+    sim = QueueFlightSim(wl, num_workers=WORKERS, num_azs=AZS,
+                         load="medium", seed=0, device=dev, scan="logdepth",
+                         block=64, summary_backend="kernel")
+    maxplus_entries.launches = 0
+    svc = SchedulerService(sim, microbatch=SERVICE_MB, seed=0)
+    rep = svc.run_open_load(
+        jobs=jobs, microbatch=SERVICE_MB,
+        process=MMPPArrivals(sim.rate_hz, burst_factor=5.0,
+                             dwell_s=(20.0, 4.0), seed=0), seed=0)
+    launches = maxplus_entries.launches
+    if launches < 1 or rep.jobs != jobs:
+        raise AssertionError(f"fault service: {launches} maxplus_scan "
+                             f"launches, {rep.jobs} jobs")
+    if not 0.0 < rep.ok_frac < 1.0:
+        raise AssertionError(f"fault service: ok fraction {rep.ok_frac}")
+    check = oracle_check(sim, n_steps=6, microbatch=SERVICE_MB, trace=True)
+    if not check["bitwise"]:
+        raise AssertionError(f"fault streaming oracle_check failed: {check}")
+    say(f"phase 15 fault service: {rep.jobs} jobs (MMPP, microbatch "
+        f"{SERVICE_MB}, config {sim.engine_config('raptor')}), "
+        f"{rep.jobs_per_s:.1f} jobs/s, ok {rep.ok_frac:.4f}, p50 "
+        f"{rep.p50_ms:.1f} ms, p99 {rep.p99_ms:.1f} ms, SLO "
+        f"{rep.slo_ms:.0f} ms violated {rep.slo_violation_frac:.4f}; "
+        f"oracle_check bitwise (runs and traces) {check['bitwise']}; "
+        f"maxplus_scan launches {launches} [{card}]")
+    return dict(rep.summary(), launches=launches)
+
+
+def open_loop_phase(dev, card, trials=OPEN_LOOP_TRIALS) -> dict:
+    """Phase 16: ``VectorFlightSim.run_pair`` on the card against the
+    closed forms (tests/test_sim_vector.py's bars), and fault_sweep's
+    open-loop rows beside the independence prediction."""
+    from repro_torch.core import analytics as an
+    from repro_torch.sim.faults import FaultProfile
+    from repro_torch.sim.vector import (VectorFlightSim, exponential_vector,
+                                        keygen_vector, reliability_vector)
+    out, walls = {}, {}
+
+    def pair(name, wl, **kw):
+        t0 = time.perf_counter()
+        res = VectorFlightSim(wl, device=dev, **kw).run_pair(trials)
+        walls[name] = time.perf_counter() - t0
+        out[name] = res
+        return res
+
+    checks = []
+    r = pair("keygen", keygen_vector(), num_azs=3, flight=2, load="low")
+    checks.append(("keygen ratio", r["mean_ratio"], 0.647, 0.06))
+    r = pair("exp_rho0", exponential_vector(2, 1000.0), num_azs=3, flight=2,
+             rho=0.0, stream_latency_ms=0.0)
+    checks.append(("rho=0 exp ratio", r["mean_ratio"],
+                   an.response_ratio_paper(), 0.05))
+    for n, p in ((2, 0.3), (4, 0.2)):
+        r = pair(f"reliability_{n}", reliability_vector(n, p), num_azs=3,
+                 flight=n)
+        checks.append((f"reliability({n}, {p}) raptor fail",
+                       r["raptor"]["fail_rate"],
+                       an.raptor_failure_exact(p, n), 0.02))
+        checks.append((f"reliability({n}, {p}) stock fail",
+                       r["stock"]["fail_rate"], an.forkjoin_failure(p, n),
+                       0.02))
+    for name, got, want, tol in checks:
+        if not abs(got - want) <= tol:
+            raise AssertionError(f"open loop {name}: {got} vs {want} +- "
+                                 f"{tol}")
+    base = dict(az_mtbf_ms=24_000.0, az_mttr_ms=6_000.0,
+                degraded_inflation=3.0)
+    pi = FaultProfile(**base).stationary_degraded
+    pred = an.mixture_speedup_prediction(2, 2, p_deg=pi, inflation=3.0,
+                                         n_samples=20_000, seed=0)
+    rows = {}
+    for tag, corr in (("iid", False), ("correlated", True)):
+        wl = exponential_vector(2, 1000.0,
+                                faults=FaultProfile(correlated=corr, **base))
+        r = pair(f"fault_{tag}", wl, num_azs=3, flight=2, load="low")
+        rows[tag] = dict(measured_ratio=r["mean_ratio"],
+                         predicted_ratio=pred,
+                         rel_err=abs(r["mean_ratio"] - pred) / pred)
+    for name, got, want, tol in checks:
+        say(f"phase 16 open loop {name}: {got:.4f} (closed form {want:.4f} "
+            f"+- {tol})")
+    for tag, row in rows.items():
+        say(f"phase 16 open loop fault_sweep {tag}: measured ratio "
+            f"{row['measured_ratio']:.4f}, independence prediction "
+            f"{row['predicted_ratio']:.4f}, rel err {row['rel_err']:.4f}")
+    say(f"phase 16 open loop: {trials} trials a run; wall s "
+        + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+        + f" [{card}]")
+    return dict(pairs=out, checks=[list(c) for c in checks],
+                fault_sweep=rows, walls_s=walls)
 
 
 def main() -> int:
@@ -1088,7 +1339,12 @@ def main() -> int:
     k5_bound_by = max(("bytes", "operations"), key=lambda kind: k5_mean(
         "bound_ms", [r for r in k5["rows"] if r["bound_by"] == kind]))
 
-    # ---- 14. kernels line --------------------------------------------------
+    # ---- 14-16. fault mode and the open-loop engine -----------------------
+    results["fault_engine"] = fault_engine_phase(dev, card)
+    results["fault_service"] = fault_service_phase(dev, card)
+    results["open_loop"] = open_loop_phase(dev, card)
+
+    # ---- 17. kernels line --------------------------------------------------
     kernels = [
         {"name": "queue_booking", "route": "cuda",
          "source": "src/repro_torch/csrc/queue_booking.cu",
@@ -1105,6 +1361,8 @@ def main() -> int:
          "bound_ms": k2_bound, "bound_by": "bytes", "library_ms": None,
          "floor_ms": k2_floor, "graph1_ms": k2_graph1,
          "floor1_ms": k2_floor1, "yardstick_ms": cummax_ms,
+         "fault_launches": results["fault_engine"]["launches"],
+         "fault_service_launches": results["fault_service"]["launches"],
          "yardstick": "torch.cummax of off alone (the inclusive max "
                       "prefix): no PyTorch call computes the kernel's "
                       "exclusive entries and exit vector"},

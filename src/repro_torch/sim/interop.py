@@ -22,11 +22,20 @@ def _tensor(x, device):
 
 
 def events_from_numpy(events, device="cpu"):
-    """A drawn event tuple — ``(arrivals, z_case, [fail_seq,] t_oh,
-    prio)`` as the reference's ``_raptor_stream_fns(...)[1]`` returns it,
-    each leaf with a leading per-stream axis ``(T, jobs, ...)`` — as port
+    """A drawn event tuple as the reference's ``_raptor_stream_fns(...)[1]``
+    returns it — ``(arrivals, z_case, [fail_seq,] t_oh, prio)``, or in
+    fault mode ``(arrivals, z_case, t_oh, prio, u_err, u_jit)`` — each
+    leaf with a leading per-stream axis ``(T, jobs, ...)``, as port
     tensors (float32, bool) on ``device``."""
     return tuple(_tensor(x, device) for x in events)
+
+
+def env_from_numpy(bs, be, cs, ce, device="cpu"):
+    """The reference's drawn fault tables — ``(T, A, I)`` brownout
+    starts/ends and ``(T, W, C)`` crash starts/ends, as its
+    ``_raptor_stream_fns(...)[0]`` or a fault-mode stock trace gives them
+    — as the port's ``env`` bundle of float32 tensors on ``device``."""
+    return tuple(_tensor(x, device).contiguous() for x in (bs, be, cs, ce))
 
 
 def wvector_from_numpy(wf, device="cpu"):

@@ -16,6 +16,11 @@ to exactly one replay of the concatenated stream; :func:`oracle_check`
 replays the concatenated event tensors through the ``block=1``
 sequential oracle and compares runs and traces bitwise.
 
+Fault mode: the brownout and crash tables are exogenous wall-clock
+interval processes, drawn ONCE per stream (from a generator of their
+own) and handed to every step, as the whole-trace replay draws them once
+per trial; :func:`oracle_check` replays with the same tables.
+
 Padding: the final partial microbatch is padded with ``inf`` arrivals —
 the dead-event convention (releases gated to ``-inf``) books nothing for
 them, leaving the W-state bitwise untouched; padded outputs are masked
@@ -71,7 +76,8 @@ class StreamingScheduler:
     ``pipeline_depth`` bounds how many microbatches may sit unharvested
     before ``submit`` harvests the oldest (which waits for the device).
     ``keep_events=True`` records the drawn event tensors so
-    :func:`oracle_check` can replay the identical stream whole-trace.
+    :func:`oracle_check` can replay the identical stream whole-trace
+    (with the one-shot fault tables, ``env``).
     """
 
     def __init__(self, sim: QueueFlightSim, *, microbatch: int = 64,
@@ -90,12 +96,18 @@ class StreamingScheduler:
         self.keep_events = bool(keep_events)
         blk, res, sc = sim.engine_config("raptor")
         self.config = (blk, res, sc)
-        self._draw, self._step = _raptor_stream_fns(
+        draw_env, self._draw, self._step = _raptor_stream_fns(
             sim.W, sim.A, sim.flight, sim.wl.graph, sim.wl.dist,
-            sim.wl.fail_prob, blk, res, sc, sim.summary_backend, trace,
-            self.device)
+            sim.wl.fail_prob, sim._fp, sim._policy, blk, res, sc,
+            sim.summary_backend, trace, self.device)
+        base = sim.seed if seed is None else int(seed)
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(sim.seed if seed is None else int(seed))
+        self._gen.manual_seed(base)
+        # fault tables are drawn ONCE per stream, from their own generator
+        # (None outside fault mode)
+        env_gen = torch.Generator(device=self.device)
+        env_gen.manual_seed(base + 2 ** 31)
+        self.env = draw_env(env_gen, 1)
         self.wf = torch.zeros((1, sim.W), device=self.device)
         self._pending = collections.deque()   # (outs, live, arrivals_ms)
         self._done = []
@@ -132,7 +144,7 @@ class StreamingScheduler:
                             sim.oh_mu, sim.oh_sigma)
         if self._events is not None:
             self._events.append(events)
-        wf, outs = self._step(self.wf, events, sim.slat)
+        wf, outs = self._step(self.wf, events, self.env, sim.slat)
         self.wf.copy_(wf)          # the persistent state, updated in place
         self._pending.append((outs, live, padded))
         self.jobs_submitted += int(arr.size)
@@ -187,8 +199,9 @@ def oracle_check(sim: QueueFlightSim, *, n_steps: int = 6,
     Runs ``n_steps`` microbatches through :class:`StreamingScheduler`
     (recording the drawn event tensors), then books the concatenated
     stream in ONE replay through the ``block=1`` sequential oracle from a
-    zero W-state.  Returns bitwise equality per output column (runs, and
-    traces when ``trace=True``) and their conjunction under "bitwise".
+    zero W-state, with the stream's fault tables.  Returns bitwise
+    equality per output column (runs, and traces when ``trace=True``) and
+    their conjunction under "bitwise".
     """
     if process is None:
         process = PoissonArrivals(sim.rate_hz, seed=sim.seed + 17)
@@ -201,12 +214,12 @@ def oracle_check(sim: QueueFlightSim, *, n_steps: int = 6,
         eng.submit(process.take(n))
     streamed = (eng.drain_trace() if trace else eng.drain())
     events = eng.concatenated_events()
-    _, oracle_step = _raptor_stream_fns(
+    _, _, oracle_step = _raptor_stream_fns(
         sim.W, sim.A, sim.flight, sim.wl.graph, sim.wl.dist,
-        sim.wl.fail_prob, 1, "fixpoint", "seq", sim.summary_backend, trace,
-        sim.device)
+        sim.wl.fail_prob, sim._fp, sim._policy, 1, "fixpoint", "seq",
+        sim.summary_backend, trace, sim.device)
     _, outs = oracle_step(torch.zeros((1, sim.W), device=sim.device),
-                          events, sim.slat)
+                          events, eng.env, sim.slat)
     live = np.isfinite(events[0][0].cpu().numpy())
     names = (("resp", "ok", "arrival", "dispatch", "worker", "release")
              if trace else ("resp", "ok"))

@@ -1,8 +1,8 @@
 """Closed-loop vectorized cluster engine: batched worker queues and DAG
 flights replayed on the device.
 
-The port of ``repro/sim/vector_queue.py`` without fault mode.  Each trial
-replays a whole Poisson arrival stream against a finite worker pool:
+The port of ``repro/sim/vector_queue.py``.  Each trial replays a whole
+Poisson arrival stream against a finite worker pool:
 
 * raptor: every arriving job claims ``F`` workers (HA placement: a
   uniform-random free worker in an AZ the flight has not used, else any
@@ -14,20 +14,28 @@ replays a whole Poisson arrival stream against a finite worker pool:
   in ready order; staged ready times come from a bounded fixed point over
   stage depth.
 
+Fault mode (an enabled :class:`repro_torch.sim.faults.FaultProfile` or a
+non-default :class:`repro_torch.sim.policies.RecoveryPolicy`): per-trial
+brownout and crash interval tables are drawn once and read by every
+booking; raptor places members health-first and folds each launch's
+whole timeout/retry/backoff chain into its one race event; stock expands
+every task into ``policy.stock_attempts`` attempt slots (retries and the
+hedge copy) that join the one merged stream, their ready times
+materialized by the same bounded fixed point as staged readies.
+
 Both replays run on the blocked event-replay substrate
 (:mod:`repro_torch.sim.scan_core`); ``block=1`` is the sequential oracle.
 The trial axis is a leading batch dimension: one call books every trial.
 Draws come from an explicit ``torch.Generator`` seeded from ``seed``, so
 the port matches the reference by distribution; fed the reference's
-drawn events (:mod:`repro_torch.sim.interop`), its booking step is
-bitwise the reference's.
+drawn events and fault tables (:mod:`repro_torch.sim.interop`), its
+booking step is bitwise the reference's.
 
 Backends: ``booking_backend`` "scan" (the substrate) or "kernel" (the
-``queue_booking`` CUDA kernel) books the stock stream;
+``queue_booking`` CUDA kernel) books the stock stream — fault mode needs
+the substrate, as the reference's Pallas route refuses it;
 ``summary_backend`` "torch" or "kernel" (the ``maxplus_scan`` CUDA
-kernel) runs the log-depth summary prefix.  Fault injection and
-non-default recovery policies are refused here; they come with the fault
-mode slice.
+kernel) runs the log-depth summary prefix, fault mode included.
 """
 from __future__ import annotations
 
@@ -43,8 +51,11 @@ from repro_torch.core.analytics import summarize_batch
 from repro_torch.core.workflow import (WorkflowGraph, compile_spec, fanout,
                                        task)
 from repro_torch.sim.cluster import OverheadModel, lognormal_params
-from repro_torch.sim.faults import FaultProfile
-from repro_torch.sim.policies import NO_RECOVERY, RecoveryPolicy
+from repro_torch.sim.faults import (FaultProfile, first_start_in,
+                                    interval_active, push_out)
+from repro_torch.sim.policies import (NO_RECOVERY, RecoveryPolicy,
+                                      attempt_end, backoff_after,
+                                      fault_statics, fold_chain)
 from repro_torch.sim.scan_core import (blocked_bestfit_booking,
                                        blocked_event_replay,
                                        stock_booking_fins)
@@ -71,9 +82,9 @@ class QueueWorkload:
     differ (thumbnail's stock functions re-download the source, so its
     task list drops the shared download stage and each task pays
     ``stock_extra_means`` as a second service draw); conditionals are
-    always flattened for stock.  ``faults``/``recovery`` are carried for
-    the reference's workload signature; this package's engines refuse an
-    enabled profile or a non-default policy.
+    always flattened for stock.  ``faults``/``recovery`` (frozen,
+    hashable) carry the fault environment and the recovery policy;
+    ``QueueFlightSim`` keywords override them.
     """
     graph: WorkflowGraph
     flight: int
@@ -214,7 +225,7 @@ def _pick(x, idx):
 
 def dag_flight_trial(z_seq, fail_seq, t_join, seq, dep_mask, slat,
                      direct_start: bool = False, num_events: int = None,
-                     no_failures: bool = False, cond=None,
+                     no_failures: bool = False, recovery=None, cond=None,
                      has_deps: bool = None):
     """Replay flights of a (possibly DAG) manifest, batched over leading
     dimensions.
@@ -233,12 +244,39 @@ def dag_flight_trial(z_seq, fail_seq, t_join, seq, dep_mask, slat,
     select pair ``(cond_guard, cond_sense)``: a guard completes on its
     first finished attempt, and the same event cancels the arm gated on
     the opposite outcome.  ``has_deps`` saves a device read of
-    ``dep_mask`` when the caller knows it.  Returns ``(t_resp, ok,
-    t_release)`` with per-member worker release times.
+    ``dep_mask`` when the caller knows it.
+
+    ``recovery`` (optional) is the fault/policy bundle ``(policy, faults,
+    base_fail, bs, be, cs, ce, u_err, u_jit)``: per-member brownout
+    tables of the PLACED AZ (``(..., F, I)``), crash tables of the placed
+    worker (``(..., F, C)``; contiguous and sorted, as drawn) and
+    pre-drawn per-attempt uniforms (``(..., F, K, R+1)`` errors,
+    ``(..., F, K, R)`` backoff jitter, by sequence position).  Each launch then folds its whole
+    timeout/retry/backoff chain into its ONE race event
+    (:func:`repro_torch.sim.policies.fold_chain`): retries re-run on the
+    same worker with the same service draw, the member stays busy for the
+    whole chain, and the first-success broadcast preempts a chain as a
+    unit.  ``fail_seq`` is ignored in this mode.
+
+    Returns ``(t_resp, ok, t_release)`` with per-member worker release
+    times.
     """
     F, K = z_seq.shape[-2:]
     lead = tuple(z_seq.shape[:-2])
     dev = z_seq.device
+    if recovery is not None:
+        (r_pol, r_fp, r_base_fail, r_bs, r_be, r_cs, r_ce,
+         u_err, u_jit) = recovery
+
+        def chain(t0, z, u_e, u_j):
+            return fold_chain(t0, z, u_e, u_j, r_bs, r_be, r_cs, r_ce,
+                              policy=r_pol, faults=r_fp,
+                              base_fail=r_base_fail)
+
+        def at_position(u, j):
+            # the uniforms of each member's j-th sequence position
+            idx = j[..., None, None].expand(j.shape + (1, u.shape[-1]))
+            return torch.gather(u, -2, idx)[..., 0, :]
     if has_deps is None:
         has_deps = bool(dep_mask.any())
     has_cond = cond is not None and any(g >= 0 for g in cond[0])
@@ -258,8 +296,12 @@ def dag_flight_trial(z_seq, fail_seq, t_join, seq, dep_mask, slat,
     if direct_start:
         attempted[..., 0] = True
         cur = seq[:, 0].expand(lead + (F,))
-        curfail = fail_seq[..., 0]
-        fin = t_join + z_seq[..., 0]
+        if recovery is None:
+            curfail = fail_seq[..., 0]
+            fin = t_join + z_seq[..., 0]
+        else:
+            fin, curfail = chain(t_join, z_seq[..., 0], u_err[..., 0, :],
+                                 u_jit[..., 0, :])
     else:
         cur = torch.full(lead + (F,), -1, dtype=seq.dtype, device=dev)
         curfail = torch.zeros(lead + (F,), dtype=torch.bool, device=dev)
@@ -317,12 +359,17 @@ def dag_flight_trial(z_seq, fail_seq, t_join, seq, dep_mask, slat,
         # the finisher chains immediately; preempted/woken members restart
         # after the stream half-RTT
         start = torch.where(e_hot, t[..., None], t[..., None] + slat)
-        fin_try = start + z_next
+        if recovery is None:
+            fin_try, f_next = start + z_next, _pick(fail_seq, j)
+        else:
+            # the whole chain is ONE event on the member's placed worker;
+            # only its final outcome is visible to peers (§3.3.4)
+            fin_try, f_next = chain(start, z_next, at_position(u_err, j),
+                                    at_position(u_jit, j))
         fin2 = torch.where(can_start, fin_try,
                            torch.where(busy_after, fin, _INF))
         cur2 = torch.where(can_start, nxt, torch.where(busy_after, cur, -1))
-        curfail2 = torch.where(can_start, _pick(fail_seq, j),
-                               busy_after & curfail)
+        curfail2 = torch.where(can_start, f_next, busy_after & curfail)
         if not no_failures:
             attempted = attempted | ((k_ar == j[..., None])
                                      & can_start[..., None])
@@ -391,18 +438,21 @@ def auto_config(engine: str, scan: str = "auto",
     return 8, "unrolled", scan
 
 
-def _raptor_mode(fail_prob: float, faults: FaultProfile = None,
-                 policy: RecoveryPolicy = None) -> bool:
-    """Whether any attempt can fail (gates race budgets and the error
-    draws).  Raises for the reference's fault mode — an enabled fault
-    profile or a non-default recovery policy — which is not ported yet."""
-    if ((faults is not None and faults.enabled)
-            or (policy is not None and not policy.is_default)):
-        raise ValueError(
-            "fault mode (an enabled FaultProfile or a non-default "
-            "RecoveryPolicy) is not ported yet; it comes with the "
-            "fault-mode slice (ROADMAP.md §1 item 5)")
-    return fail_prob > 0.0
+def _raptor_env(fp: FaultProfile, gen: torch.Generator, A: int, W: int,
+                lead=()):
+    """Exogenous fault environment ``(bs, be, cs, ce)``: one brownout
+    table per AZ ``(*lead, A, I)``, one crash table per worker ``(*lead,
+    W, C)``, drawn from ``gen`` (policy-only mode: the inactive ``[inf,
+    inf)`` sentinels).  Drawn per trial by the whole-trace replay and once
+    per stream by the streaming scheduler."""
+    lead = tuple(lead)
+    if fp is not None:
+        bs, be = fp.brownout_tables(gen, A, lead)
+        cs, ce = fp.crash_tables(gen, W, lead)
+        return bs, be, cs, ce
+    az = torch.full(lead + (A, 1), _INF, device=gen.device)
+    wk = torch.full(lead + (W, 1), _INF, device=gen.device)
+    return az, az, wk, wk
 
 
 def _f32(x, device):
@@ -413,10 +463,12 @@ def _f32(x, device):
 
 
 def _raptor_job_draws(gen, arrivals, *, W, A, F, K, seq, dist, cv, rho,
-                      means, offset, stage_oh, oh_mu, oh_sigma, fail_prob):
+                      means, offset, stage_oh, oh_mu, oh_sigma, fail_prob,
+                      fault_mode=False, R=0):
     """Per-job event tensors for ``(T, jobs)`` arrivals — the event tuple
-    :func:`_raptor_job_body` books.  Shared by the whole-trace trial and
-    the streaming engine's per-microbatch draw."""
+    :func:`_raptor_job_body` books, without the trial-level fault tables.
+    Shared by the whole-trace trial and the streaming engine's
+    per-microbatch draw."""
     dev = arrivals.device
     lead = tuple(arrivals.shape)
     rho, offset, stage_oh = (_f32(x, dev) for x in (rho, offset, stage_oh))
@@ -438,6 +490,12 @@ def _raptor_job_draws(gen, arrivals, *, W, A, F, K, seq, dist, cv, rho,
     z_case = torch.gather(z_case, -1, seq.expand(lead + (A, F, K)))
     # placement tie-break randomness: one priority per (job, worker)
     prio = torch.rand(lead + (W,), generator=gen, device=dev)
+    if fault_mode:
+        # fault mode folds base errors into the per-attempt chain
+        # uniforms, by sequence position — no precomputed outcome bitmap
+        u_err = torch.rand(lead + (F, K, R + 1), generator=gen, device=dev)
+        u_jit = torch.rand(lead + (F, K, R), generator=gen, device=dev)
+        return (arrivals, z_case, t_oh, prio, u_err, u_jit)
     if fail_prob == 0.0:
         return (arrivals, z_case, t_oh, prio)
     fail = torch.rand(lead + (F, K), generator=gen, device=dev) < fail_prob
@@ -446,40 +504,78 @@ def _raptor_job_draws(gen, arrivals, *, W, A, F, K, seq, dist, cv, rho,
 
 
 def _raptor_race_budget(block: int, F: int, K: int, anyfail: bool,
-                        direct: bool, has_deps: bool):
+                        fault_mode: bool, direct: bool, has_deps: bool):
     """(race_events, closed_form) for the flight race inside the replay.
 
     With no injected errors every race event is a distinct task
     completion, so K completions (+ the F joins when members cannot start
     mid-attempt) bound the race exactly, and the F=2/K=2 dep-free case
-    close-forms entirely.  The block=1 oracle keeps the full budget and
-    the generic event scan.
+    close-forms entirely — outside fault mode, since the closed form knows
+    nothing of inflation, crashes or timeouts.  The block=1 oracle keeps
+    the full budget and the generic event scan.
     """
     if block <= 1:
         return None, False
     race_events = (K if not anyfail else F * K) + (0 if direct else F)
-    closed_form = (F == 2 and K == 2 and not anyfail and direct
-                   and not has_deps)
+    closed_form = (F == 2 and K == 2 and not anyfail and not fault_mode
+                   and direct and not has_deps)
     return race_events, closed_form
+
+
+# --------------------------------------------------------------------------
+# per-worker fault tables, queried through their sort order
+# --------------------------------------------------------------------------
+# A booking reads every worker's table.  Queries ``(T, *rest, W)`` are laid
+# out as ``(T, W, M)`` against the tables ``(T, W, C)`` so one binary
+# search per (event, worker) answers them
+# (:func:`repro_torch.sim.faults.push_out` and its siblings).
+
+def _twm(q):
+    """``(T, *rest, W)`` -> ``(T, W, M)``."""
+    return q.reshape(q.shape[0], -1, q.shape[-1]).transpose(1, 2).contiguous()
+
+
+def _untwm(x, shape):
+    """``(T, W, M)`` -> ``(T, *rest, W)``."""
+    return x.transpose(1, 2).reshape(shape)
 
 
 def _raptor_job_body(*, W, A, F, w_az, seq, dep_mask, has_deps, slat,
                      direct, closed_form, race_events, anyfail,
-                     has_failseq, trace, cond=None):
+                     has_failseq, trace, fault_mode=False, pol=None,
+                     fp=None, fail_prob=0.0, env=None, cond=None):
     """The one-job booking body (HA placement + flight race) the blocked
     substrate replays, shared by the whole-trace trial and the streaming
     scheduler.  Every op broadcasts over the leading (trials, block,
-    event) dimensions the substrate hands it."""
+    event) dimensions the substrate hands it.  ``env`` is the
+    ``(T, ...)`` fault-table bundle of :func:`_raptor_env` (fault mode
+    only)."""
     K = seq.shape[1]
     w_ar = torch.arange(W, device=w_az.device)
+    if fault_mode:
+        bs_az, be_az, cs_w, ce_w = env
+        bs_w, be_w = bs_az[:, w_az].contiguous(), be_az[:, w_az].contiguous()
+
+    def per_trial(x, nx):
+        """A ``(T, ...)`` table broadcast over ``nx`` event axes."""
+        return x.reshape(x.shape[:1] + (1,) * nx + x.shape[1:])
 
     def job_body(wfree, inp):
-        if has_failseq:
+        if fault_mode:
+            arrival, zcj, ohj, prj, u_e, u_j = inp
+        elif has_failseq:
             arrival, zcj, fj, ohj, prj = inp
         else:
             arrival, zcj, ohj, prj = inp
+        if not has_failseq:
             fj = torch.zeros(tuple(arrival.shape) + (F, K), dtype=torch.bool,
                              device=arrival.device)
+        if fault_mode:
+            # health snapshot at arrival: a worker is healthy iff its AZ
+            # is not browned out when the flight places
+            q = arrival[..., None].expand(wfree.shape)
+            hw = ~_untwm(interval_active(_twm(q), bs_w, be_w),
+                         q.shape)
         # HA placement: a free member picks a uniform-random free worker
         # in an AZ the flight hasn't used, else a uniform-random free
         # worker; a queued member is handed the next-released worker
@@ -491,10 +587,15 @@ def _raptor_job_body(*, W, A, F, w_az, seq, dep_mask, has_deps, slat,
             t_any = wf.amin(dim=-1)
             contended = t_any > arrival
             free = wf <= arr
-            # one argmax: fresh free workers rank in (1, 2], other free in
-            # (0, 1], busy at -1 — random-uniform per tier
-            key = torch.where(fresh & free, prj + 1.0,
-                              torch.where(free, prj, -1.0))
+            if fault_mode:
+                # health-aware HA: healthy beats fresh beats neither,
+                # random-uniform within each tier
+                key = torch.where(free, prj + 2.0 * hw + 1.0 * fresh, -1.0)
+            else:
+                # fresh free workers rank in (1, 2], other free in (0, 1],
+                # busy at -1 — random-uniform per tier
+                key = torch.where(fresh & free, prj + 1.0,
+                                  torch.where(free, prj, -1.0))
             w = torch.where(contended, wf.argmin(dim=-1), key.argmax(dim=-1))
             az = w_az[w]
             fresh = fresh & (w_az != az[..., None])
@@ -505,18 +606,33 @@ def _raptor_job_body(*, W, A, F, w_az, seq, dep_mask, has_deps, slat,
         t_disp = torch.stack(t_disp, dim=-1)
         widx = torch.stack(widx, dim=-1)
         m_az = torch.stack(m_az, dim=-1)
+        lead = tuple(m_az.shape[:-1])
         # the AZ-shared S block follows the actual placement (co-located
         # members re-correlate); an exact row selection
         z_seq = torch.gather(
             zcj, -3, m_az[..., None, :, None].expand(
-                tuple(m_az.shape[:-1]) + (1, F, K)))[..., 0, :, :]
+                lead + (1, F, K)))[..., 0, :, :]
+        recovery = None
+        if fault_mode:
+            # per-member fault tables follow the actual placement:
+            # brownouts of the placed AZ, crashes of the placed worker
+            nx = arrival.dim() - 1
+
+            def rows(table, idx):
+                t = per_trial(table, nx).expand(lead + table.shape[1:])
+                return torch.gather(t, -2, idx[..., None].expand(
+                    lead + (F, table.shape[-1])))
+            recovery = (pol, fp, fail_prob, rows(bs_az, m_az),
+                        rows(be_az, m_az), rows(cs_w, widx),
+                        rows(ce_w, widx), u_e, u_j)
         if closed_form:
             t_resp, ok, t_rel = _race_f2k2(z_seq, t_disp + ohj)
         else:
             t_resp, ok, t_rel = dag_flight_trial(
                 z_seq, fj, t_disp + ohj, seq, dep_mask, slat,
                 direct_start=direct, num_events=race_events,
-                no_failures=not anyfail, cond=cond, has_deps=has_deps)
+                no_failures=not anyfail, recovery=recovery, cond=cond,
+                has_deps=has_deps)
         # a padded (dead) job must book nothing: releases gated to -inf
         live = ~torch.isinf(arrival)
         rel = torch.where(live[..., None], t_rel, float("-inf"))
@@ -546,68 +662,84 @@ def _graph_consts(graph: WorkflowGraph, F: int, W: int, A: int,
 
 
 def _raptor_stream_fns(W: int, A: int, F: int, graph: WorkflowGraph,
-                       dist: str, fail_prob: float, block: int = 1,
+                       dist: str, fail_prob: float,
+                       faults: FaultProfile = None,
+                       policy: RecoveryPolicy = None, block: int = 1,
                        resolver: str = "fixpoint", scan: str = "seq",
                        summary_backend: str = "torch", trace: bool = False,
                        device="cpu"):
-    """``(draw_events, step)`` for the streaming scheduler and the
-    whole-trace trial.
+    """``(draw_env, draw_events, step)`` for the streaming scheduler and
+    the whole-trace trial.
 
+    * ``draw_env(gen, trials=1) -> env`` — the ``(trials, ...)`` fault
+      tables (:func:`_raptor_env`), drawn once per stream; ``None``
+      outside fault mode.
     * ``draw_events(gen, arrivals, rho, means, offset, cv, stage_oh,
       oh_mu, oh_sigma) -> events`` — the per-job event tensors for
       ``(T, mb)`` sorted absolute-ms arrivals.  Padded (``inf``) arrivals
       are dead events: they book nothing and leave the W-state bitwise
       untouched.
-    * ``step(wf, events, slat) -> (wf', outs)`` — book ``(T, mb)`` events
-      through :func:`blocked_event_replay` on the ``(T, W)`` W-state.
-      Because an event observes earlier events only through the carried
-      W-vector, consecutive ``step`` calls over slices of a stream equal
-      one replay of the concatenated stream, bitwise.
+    * ``step(wf, events, env, slat) -> (wf', outs)`` — book ``(T, mb)``
+      events through :func:`blocked_event_replay` on the ``(T, W)``
+      W-state.  Because an event observes earlier events only through the
+      carried W-vector, consecutive ``step`` calls over slices of a
+      stream equal one replay of the concatenated stream, bitwise, faults
+      on or off.
     """
-    anyfail = _raptor_mode(fail_prob)
+    fault_mode, pol, fp, anyfail = fault_statics(fail_prob, faults, policy)
     device = str(torch.device(device))
     seq, dep_mask, w_az, direct = _graph_consts(graph, F, W, A, device)
     K = graph.K
+
+    def draw_env(gen, trials: int = 1):
+        if not fault_mode:
+            return None
+        return _raptor_env(fp, gen, A, W, (int(trials),))
 
     def draw_events(gen, arrivals, rho, means, offset, cv, stage_oh,
                     oh_mu, oh_sigma):
         return _raptor_job_draws(
             gen, arrivals, W=W, A=A, F=F, K=K, seq=seq, dist=dist, cv=cv,
             rho=rho, means=means, offset=offset, stage_oh=stage_oh,
-            oh_mu=oh_mu, oh_sigma=oh_sigma, fail_prob=fail_prob)
+            oh_mu=oh_mu, oh_sigma=oh_sigma, fail_prob=fail_prob,
+            fault_mode=fault_mode, R=pol.max_retries)
 
-    def step(wf, events, slat):
+    def step(wf, events, env, slat):
         mb = int(events[0].shape[-1])
         blk = block if block else max(1, -(-mb // 3))
         race_events, closed_form = _raptor_race_budget(
-            blk, F, K, anyfail, direct, graph.has_deps)
+            blk, F, K, anyfail, fault_mode, direct, graph.has_deps)
         job_body = _raptor_job_body(
             W=W, A=A, F=F, w_az=w_az, seq=seq, dep_mask=dep_mask,
             has_deps=graph.has_deps, slat=_f32(slat, wf.device),
             direct=direct, closed_form=closed_form, race_events=race_events,
-            anyfail=anyfail, has_failseq=fail_prob > 0.0, trace=trace,
-            cond=graph.cond_static)
+            anyfail=anyfail,
+            has_failseq=(fail_prob > 0.0 and not fault_mode), trace=trace,
+            fault_mode=fault_mode, pol=pol, fp=fp, fail_prob=fail_prob,
+            env=env, cond=graph.cond_static)
         return blocked_event_replay(job_body, wf, events, block=blk,
                                     resolver=resolver, scan=scan,
                                     summary_backend=summary_backend)
 
-    return draw_events, step
+    return draw_env, draw_events, step
 
 
 def _raptor_trial_fn(jobs: int, W: int, A: int, F: int,
                      graph: WorkflowGraph, dist: str, fail_prob: float,
-                     block: int = 1, resolver: str = "fixpoint",
-                     scan: str = "seq", summary_backend: str = "torch",
-                     trace: bool = False, device="cpu"):
+                     faults: FaultProfile = None,
+                     policy: RecoveryPolicy = None, block: int = 1,
+                     resolver: str = "fixpoint", scan: str = "seq",
+                     summary_backend: str = "torch", trace: bool = False,
+                     device="cpu"):
     """Closed-loop raptor replay of ``trials`` whole arrival streams at
-    once: Poisson arrivals, the shared event draw, and one
-    :func:`blocked_event_replay` of the shared booking body from an idle
-    pool.  ``block=0`` is the adaptive log-depth split ``ceil(jobs/3)``.
-    ``trace=True`` also returns ``(arrival, dispatch, worker, release)``
-    per (job, member)."""
-    draw_events, step = _raptor_stream_fns(
-        W, A, F, graph, dist, fail_prob, block, resolver, scan,
-        summary_backend, trace, device)
+    once: Poisson arrivals, the shared event draw, the trials' fault
+    tables (fault mode), and one :func:`blocked_event_replay` of the
+    shared booking body from an idle pool.  ``block=0`` is the adaptive
+    log-depth split ``ceil(jobs/3)``.  ``trace=True`` also returns
+    ``(arrival, dispatch, worker, release)`` per (job, member)."""
+    draw_env, draw_events, step = _raptor_stream_fns(
+        W, A, F, graph, dist, fail_prob, faults, policy, block, resolver,
+        scan, summary_backend, trace, device)
 
     def trial(gen, trials, rate_hz, rho, means, offset, cv, stage_oh, slat,
               oh_mu, oh_sigma):
@@ -617,8 +749,9 @@ def _raptor_trial_fn(jobs: int, W: int, A: int, F: int,
         arrivals = torch.cumsum(gaps * _f32(1000.0 / rate_hz, dev), dim=-1)
         events = draw_events(gen, arrivals, rho, means, offset, cv,
                              stage_oh, oh_mu, oh_sigma)
+        env = draw_env(gen, trials)
         wf0 = torch.zeros((trials, W), device=dev)
-        _, outs = step(wf0, events, slat)
+        _, outs = step(wf0, events, env, slat)
         if trace:
             resp, ok, t_disp, widx, t_rel = outs
             return resp, ok, (arrivals, t_disp, widx, t_rel)
@@ -627,12 +760,14 @@ def _raptor_trial_fn(jobs: int, W: int, A: int, F: int,
     return trial
 
 
-def _stock_trial_fn(jobs: int, W: int, graph: WorkflowGraph, dist: str,
-                    fail_prob: float, passes: int = 1,
+def _stock_trial_fn(jobs: int, W: int, A: int, graph: WorkflowGraph,
+                    dist: str, fail_prob: float,
+                    faults: FaultProfile = None,
+                    policy: RecoveryPolicy = None, passes: int = 1,
                     has_extras: bool = False, block: int = 1,
-                    backend: str = "scan", scan: str = "seq",
-                    summary_backend: str = "torch", trace: bool = False,
-                    device="cpu"):
+                    backend: str = "scan", resolver: str = "fixpoint",
+                    scan: str = "seq", summary_backend: str = "torch",
+                    trace: bool = False, device="cpu"):
     """Closed-loop stock replay at TASK granularity (task FCFS), all
     trials at once.
 
@@ -648,6 +783,25 @@ def _stock_trial_fn(jobs: int, W: int, graph: WorkflowGraph, dist: str,
     the reference's unstable sort may order those differently, which the
     statistics do not see.  ``trace=True`` also returns ``(arrival,
     ready, start, fin, worker)``.
+
+    Fault mode (``faults``/``policy``, as for raptor): every task expands
+    into ``policy.stock_attempts`` attempt slots (primary, retries, the
+    hedge copy) that all join the one merged stream; unlaunched slots
+    ride at ``ready = inf`` and book nothing.  Each booking takes the
+    worker whose start, pushed past its crash outages, is earliest (exact
+    ties: a healthy AZ first, then the lowest index) and resolves its
+    outcome against the trial's brownout and crash tables through the
+    generic blocked replay (``block``/``resolver``/``scan``).  Retry and
+    hedge ready times depend on earlier bookings, so they materialize
+    through the same bounded fixed point as staged readies (the caller
+    scales ``passes`` by the attempt budget).  The trace gains the
+    attempt axis, the per-attempt ``fail`` outcomes and the four tables.
+
+    Returns ``trial(gen, trials, rate_hz, rho, means, extras, offset, cv,
+    stage_oh, oh_mu, oh_sigma)``; ``trial.replay(draws, stage_oh)`` books
+    given draws — ``(arrivals, z, ok, oh)``, or in fault mode
+    ``(arrivals, z, oh, env, u_err, u_jit)`` — which is how the tests
+    feed it the reference's.
     """
     device = str(torch.device(device))
     K = graph.K
@@ -655,37 +809,41 @@ def _stock_trial_fn(jobs: int, W: int, graph: WorkflowGraph, dist: str,
     has_deps = bool(dep_rows.any())
     dep_mask = torch.as_tensor(dep_rows, device=device)
     root = torch.as_tensor(~dep_rows.any(axis=1), device=device)
+    fault_mode, pol, fp, _ = fault_statics(fail_prob, faults, policy)
+    A_att = pol.stock_attempts if fault_mode else 1
+    R = pol.max_retries
     N = jobs * K
+    Na = N * A_att
     if not block:
-        block = max(1, -(-N // 3))      # adaptive log-depth split
+        block = max(1, -(-Na // 3))     # adaptive log-depth split
+    w_az = torch.arange(W, device=device) % A
+    w_ar = torch.arange(W, device=device)
 
-    def trial(gen, trials, rate_hz, rho, means, extras, offset, cv,
-              stage_oh, oh_mu, oh_sigma):
-        dev = gen.device
-        T = trials
-        rho_t = _f32(rho, dev)
-        gaps = torch.empty((T, jobs), device=dev).exponential_(generator=gen)
-        arrivals = torch.cumsum(gaps * _f32(1000.0 / rate_hz, dev), dim=-1)
-        # each task's time is the rho-mixture of two i.i.d. draws
-        zz = unit_draws(gen, (T, jobs, 4 if has_extras else 2, K), dist, cv)
-        z = (rho_t * zz[..., 0, :] + (1 - rho_t) * zz[..., 1, :]) \
-            * _f32(means, dev) + _f32(offset, dev)
-        if has_extras:
-            z = z + (rho_t * zz[..., 2, :] + (1 - rho_t) * zz[..., 3, :]) \
-                * _f32(extras, dev)
-        if fail_prob == 0.0:
-            ok = torch.ones((T, jobs), dtype=torch.bool, device=dev)
+    def replay(draws, stage_oh):
+        if fault_mode:
+            arrivals, z, oh, env, u_err, u_jit = draws
         else:
-            ok = ~torch.any(torch.rand((T, jobs, K), generator=gen,
-                                       device=dev) < fail_prob, dim=-1)
-        oh = torch.exp(_f32(oh_mu, dev) + _f32(oh_sigma, dev) * torch.randn(
-            (T, jobs, K + 1), generator=gen, device=dev))
+            arrivals, z, ok, oh = draws
+        dev = arrivals.device
+        T = arrivals.shape[0]
         oh0, ohd = oh[..., 0], oh[..., 1:]
         # roots queue after the arrival overhead; staged tasks are inf
         # until a fixed-point pass materializes their dependencies
         ready0 = torch.where(root, (arrivals + oh0)[..., None], _INF)
-        z_flat = z.reshape(T, N)
         wf0 = torch.zeros((T, W), device=dev)
+
+        def refresh(fin):
+            # stage hops (storage round-trip + control-plane draw) elapse
+            # BEFORE a worker is occupied
+            dmax = torch.where(dep_mask, fin[..., None, :],
+                               float("-inf")).amax(dim=-1)
+            return torch.where(root, ready0,
+                               dmax + _f32(stage_oh, dev) + ohd)
+
+        if fault_mode:
+            return _stock_fault_passes(arrivals, z, env, u_err, u_jit,
+                                       ready0, refresh, wf0)
+        z_flat = z.reshape(T, N)
 
         def book(ready, full):
             r_flat = ready.reshape(T, N)
@@ -706,14 +864,6 @@ def _stock_trial_fn(jobs: int, W: int, graph: WorkflowGraph, dist: str,
                 scan=scan, summary_backend=summary_backend)
             return unsort(fins), unsort(sts), unsort(wks)
 
-        def refresh(fin):
-            # stage hops (storage round-trip + control-plane draw) elapse
-            # BEFORE a worker is occupied
-            dmax = torch.where(dep_mask, fin[..., None, :],
-                               float("-inf")).amax(dim=-1)
-            return torch.where(root, ready0,
-                               dmax + _f32(stage_oh, dev) + ohd)
-
         ready = ready0
         for p in range(passes):
             fin, start, wkr = book(ready, trace and p + 1 == passes)
@@ -724,6 +874,146 @@ def _stock_trial_fn(jobs: int, W: int, graph: WorkflowGraph, dist: str,
             return resp, ok, (arrivals, ready, start, fin, wkr)
         return resp, ok
 
+    def _stock_fault_passes(arrivals, z, env, u_err, u_jit, ready0,
+                            refresh, wf0):
+        T = arrivals.shape[0]
+        bs_az, be_az, cs_w, ce_w = (x.contiguous() for x in env)
+        bs_w, be_w = bs_az[:, w_az].contiguous(), be_az[:, w_az].contiguous()
+        infl = fp.degraded_inflation if fp is not None else 1.0
+        pdeg = fp.degraded_fail_prob if fp is not None else fail_prob
+        # the service draw is shared across a task's attempts
+        # (deterministic re-execution)
+        z_flat = z[..., None].expand(T, jobs, K, A_att).reshape(T, Na)
+        u_flat = u_err.reshape(T, Na)
+
+        def att_body(wf, inp):
+            r, zb, u = inp
+            live = ~torch.isinf(r)
+            # per-worker start were the attempt booked there: the
+            # free-at/ready floor pushed past the worker's crash outages;
+            # earliest start wins, exact ties broken toward healthy AZs
+            # then the lowest index — the lexicographic (start, degraded,
+            # w) dispatch key
+            q = torch.maximum(wf, r[..., None])
+            stw_t = push_out(_twm(q), cs_w, ce_w)
+            deg_w = _untwm(interval_active(stw_t, bs_w, be_w),
+                           q.shape)
+            stw = _untwm(stw_t, q.shape)
+            tie = stw == stw.amin(dim=-1, keepdim=True)
+            w = torch.where(tie, deg_w.to(stw.dtype), _INF).argmin(dim=-1)
+            s = _pick(stw, w)
+            deg = _pick(deg_w, w)
+            fin, zi = attempt_end(s, zb, torch.where(deg, infl, 1.0),
+                                  pol.timeout_ms)
+            # the first crash of the chosen worker inside (s, fin)
+            c1 = _pick(_untwm(first_start_in(
+                _twm(s[..., None].expand(q.shape)),
+                _twm(fin[..., None].expand(q.shape)), cs_w), q.shape), w)
+            crashed = c1 < fin
+            end = torch.where(crashed, c1, fin)
+            p_err = torch.where(deg, pdeg, fail_prob)
+            fl = (u < p_err) | (zi > pol.timeout_ms) | crashed
+            rel = torch.where(live, end, float("-inf"))
+            return (w[..., None], rel[..., None]), (end, s, fl, w)
+
+        def book_f(att_ready):
+            # joint task-FCFS over every attempt slot: one merged
+            # ready-sorted stream of jobs*K*A_att events
+            r_flat = att_ready.reshape(T, Na)
+            order = torch.argsort(r_flat, dim=-1, stable=True)
+            evs = tuple(torch.gather(x, -1, order)
+                        for x in (r_flat, z_flat, u_flat))
+            _, outs = blocked_event_replay(
+                att_body, wf0, evs, block=block, resolver=resolver,
+                scan=scan, summary_backend=summary_backend)
+
+            def unsort(v):
+                return torch.empty_like(v).scatter_(-1, order, v).reshape(
+                    T, jobs, K, A_att)
+            return tuple(unsort(v) for v in outs)
+
+        def task_outcomes(fin_a, fl_a):
+            booked = ~torch.isinf(fin_a)
+            succ = booked & ~fl_a
+            any_s = succ.any(dim=-1)
+            fin_s = torch.where(succ, fin_a, _INF).amin(dim=-1)
+            # a task dies once its retry chain is spent: the LAST chain
+            # attempt launched and failed; detection = latest attempt end
+            dead = booked[..., R] & fl_a[..., R]
+            fin_d = torch.where(booked, fin_a, float("-inf")).amax(dim=-1)
+            tfin = torch.where(any_s, fin_s, torch.where(dead, fin_d, _INF))
+            return tfin, any_s
+
+        def fault_ready(fin_a, st_a, fl_a, base_r):
+            # attempt 0 queues at the task's stage ready; retry r queues
+            # backoff after attempt r-1's failure; the hedge copy queues
+            # hedge_ms after attempt 0 started iff the primary is still
+            # running then (outcomes are pre-resolved: no cancellation)
+            booked = ~torch.isinf(fin_a)
+            cols = [base_r]
+            for a in range(1, pol.chain_attempts):
+                prev = booked[..., a - 1] & fl_a[..., a - 1]
+                nxt = backoff_after(fin_a[..., a - 1], pol, a - 1,
+                                    u_jit[..., a - 1])
+                cols.append(torch.where(prev, nxt, _INF))
+            if pol.has_hedge:
+                st0, fin0 = st_a[..., 0], fin_a[..., 0]
+                hedge = st0 + pol.hedge_ms
+                cols.append(torch.where(booked[..., 0] & (fin0 > hedge),
+                                        hedge, _INF))
+            return torch.stack(cols, dim=-1)
+
+        att_ready = torch.cat(
+            [ready0[..., None],
+             torch.full((T, jobs, K, A_att - 1), _INF,
+                        device=ready0.device)], dim=-1)
+        for p in range(passes):
+            fin_a, st_a, fl_a, wk_a = book_f(att_ready)
+            tfin, any_s = task_outcomes(fin_a, fl_a)
+            if p + 1 < passes:
+                base_r = refresh(tfin) if has_deps else ready0
+                att_ready = fault_ready(fin_a, st_a, fl_a, base_r)
+        okf = any_s.all(dim=-1)
+        resp = tfin.amax(dim=-1) - arrivals
+        if trace:
+            return resp, okf, (arrivals, att_ready, st_a, fin_a,
+                               wk_a.to(torch.int32), fl_a, cs_w, ce_w,
+                               bs_az, be_az)
+        return resp, okf
+
+    def trial(gen, trials, rate_hz, rho, means, extras, offset, cv,
+              stage_oh, oh_mu, oh_sigma):
+        dev = gen.device
+        T = trials
+        rho_t = _f32(rho, dev)
+        gaps = torch.empty((T, jobs), device=dev).exponential_(generator=gen)
+        arrivals = torch.cumsum(gaps * _f32(1000.0 / rate_hz, dev), dim=-1)
+        # each task's time is the rho-mixture of two i.i.d. draws
+        zz = unit_draws(gen, (T, jobs, 4 if has_extras else 2, K), dist, cv)
+        z = (rho_t * zz[..., 0, :] + (1 - rho_t) * zz[..., 1, :]) \
+            * _f32(means, dev) + _f32(offset, dev)
+        if has_extras:
+            z = z + (rho_t * zz[..., 2, :] + (1 - rho_t) * zz[..., 3, :]) \
+                * _f32(extras, dev)
+        if fault_mode:
+            ok = None        # derived from the attempt outcomes
+        elif fail_prob == 0.0:
+            ok = torch.ones((T, jobs), dtype=torch.bool, device=dev)
+        else:
+            ok = ~torch.any(torch.rand((T, jobs, K), generator=gen,
+                                       device=dev) < fail_prob, dim=-1)
+        oh = torch.exp(_f32(oh_mu, dev) + _f32(oh_sigma, dev) * torch.randn(
+            (T, jobs, K + 1), generator=gen, device=dev))
+        if not fault_mode:
+            return replay((arrivals, z, ok, oh), stage_oh)
+        # the exogenous fault environment (policy-only mode rides the
+        # inactive sentinels) and the per-attempt policy uniforms
+        env = _raptor_env(fp, gen, A, W, (T,))
+        u_err = torch.rand((T, jobs, K, A_att), generator=gen, device=dev)
+        u_jit = torch.rand((T, jobs, K, R), generator=gen, device=dev)
+        return replay((arrivals, z, oh, env, u_err, u_jit), stage_oh)
+
+    trial.replay = replay
     return trial
 
 
@@ -788,9 +1078,14 @@ class QueueFlightSim:
         ``booking_backend`` ("scan" or "kernel") books the stock stream;
         ``summary_backend`` ("torch" or "kernel") runs the log-depth
         summary prefix.  ``stock_extra_passes``: extra stage-depth
-        fixed-point passes of the staged stock schedule.  ``faults``/
-        ``recovery`` default from the workload; fault mode is refused
-        (not ported yet)."""
+        fixed-point passes of the staged stock schedule.
+
+        ``faults``/``recovery``: the fault environment and the recovery
+        policy; ``None`` defaults from the workload's own fields.  An
+        enabled profile or a non-default policy switches both engines
+        onto the fault branch (still block/resolver/scan invariant,
+        bitwise); it refuses ``booking_backend="kernel"``, whose kernel
+        books plain FCFS finish times only."""
         self.device = resolve_device(device)
         self.wl = wl
         self.W = int(num_workers)
@@ -810,7 +1105,15 @@ class QueueFlightSim:
         self.recovery = (recovery if recovery is not None
                          else (wl.recovery if wl.recovery is not None
                                else NO_RECOVERY))
-        _raptor_mode(wl.fail_prob, self.faults, self.recovery)
+        # statics handed to the trial factories: None unless they change
+        # behavior, so a disabled profile runs the pre-fault path
+        self.fault_mode, pol, self._fp, _ = fault_statics(
+            wl.fail_prob, self.faults, self.recovery)
+        self._policy = pol if self.fault_mode else None
+        if self.fault_mode and booking_backend == "kernel":
+            raise ValueError(
+                "booking_backend='kernel' books plain FCFS finish times "
+                "only; fault injection needs the scan substrate")
         self.rho = float(rho)
         self.load = load
         self.slat = float(stream_latency_ms)
@@ -832,8 +1135,16 @@ class QueueFlightSim:
         # fixed-point pass budget for the task-FCFS stock replay: depth+1
         # passes materialize every ready time, extras refine the estimates
         sdepth = self._sgraph.stage_depth()
-        self._spasses = (1 if sdepth == 0
-                         else sdepth + 1 + int(stock_extra_passes))
+        if self.fault_mode:
+            # retry/hedge readies materialize through the same bounded
+            # fixed point as staged readies: each stage level needs its
+            # whole attempt chain resolved, so the budget scales by the
+            # per-task attempt count
+            self._spasses = ((sdepth + 1) * self.recovery.stock_attempts
+                             + int(stock_extra_passes))
+        else:
+            self._spasses = (1 if sdepth == 0
+                             else sdepth + 1 + int(stock_extra_passes))
 
     def engine_config(self, engine: str) -> Tuple[int, str, str]:
         """Resolved (block, resolver, scan) for ``engine`` ("raptor"/
@@ -850,16 +1161,16 @@ class QueueFlightSim:
         blk, res, sc = self.engine_config("raptor")
         return _raptor_trial_fn(
             int(jobs), self.W, self.A, self.flight, self.wl.graph,
-            self.wl.dist, self.wl.fail_prob, blk, res, sc,
-            self.summary_backend, trace, self.device)
+            self.wl.dist, self.wl.fail_prob, self._fp, self._policy, blk,
+            res, sc, self.summary_backend, trace, self.device)
 
     def _stock_fn(self, jobs: int, trace: bool = False):
-        blk, _, sc = self.engine_config("stock")
+        blk, res, sc = self.engine_config("stock")
         return _stock_trial_fn(
-            int(jobs), self.W, self._sgraph, self.wl.dist,
-            self.wl.fail_prob, self._spasses, bool(self._sextras.any()),
-            blk, self.booking_backend, sc, self.summary_backend, trace,
-            self.device)
+            int(jobs), self.W, self.A, self._sgraph, self.wl.dist,
+            self.wl.fail_prob, self._fp, self._policy, self._spasses,
+            bool(self._sextras.any()), blk, self.booking_backend, res, sc,
+            self.summary_backend, trace, self.device)
 
     def _raptor_args(self):
         wl = self.wl
@@ -899,10 +1210,14 @@ class QueueFlightSim:
         """Replay with the booking trace exposed (host numpy arrays).
 
         Stock: per-(trial, job, task) ``ready`` (the value the final
-        scheduling pass honored), ``start``, ``fin``, ``worker``.
-        Raptor: per-(trial, job, member) ``dispatch``/``worker``/
-        ``release``.  Same seeds as :meth:`run`, so the traced replay IS
-        the measured one.
+        scheduling pass honored), ``start``, ``fin``, ``worker``; in fault
+        mode with a trailing attempt axis ``(trials, jobs, K, A_att)``
+        (an unlaunched slot shows ready/start/fin = inf), the per-attempt
+        ``fail`` outcomes and the trials' fault tables (``crash_start``/
+        ``crash_end`` ``(trials, W, C)``, ``az_start``/``az_end``
+        ``(trials, A, I)``).  Raptor: per-(trial, job, member)
+        ``dispatch``/``worker``/``release``.  Same seeds as :meth:`run`,
+        so the traced replay IS the measured one.
         """
         def host(x):
             return x.cpu().numpy()
@@ -913,9 +1228,18 @@ class QueueFlightSim:
             return {"response": host(resp), "ok": host(ok),
                     "arrival": host(arr), "dispatch": host(disp),
                     "worker": host(widx), "release": host(rel)}
-        resp, ok, (arr, ready, start, fin, wkr) = self._stock_fn(
-            jobs, trace=True)(self._gen(False), int(trials),
-                              *self._stock_args())
+        out = self._stock_fn(jobs, trace=True)(
+            self._gen(False), int(trials), *self._stock_args())
+        if self.fault_mode:
+            resp, ok, (arr, ready, start, fin, wkr, fl, cs, ce, bs,
+                       be) = out
+            return {"response": host(resp), "ok": host(ok),
+                    "arrival": host(arr), "ready": host(ready),
+                    "start": host(start), "fin": host(fin),
+                    "worker": host(wkr), "fail": host(fl),
+                    "crash_start": host(cs), "crash_end": host(ce),
+                    "az_start": host(bs), "az_end": host(be)}
+        resp, ok, (arr, ready, start, fin, wkr) = out
         return {"response": host(resp), "ok": host(ok),
                 "arrival": host(arr), "ready": host(ready),
                 "start": host(start), "fin": host(fin),

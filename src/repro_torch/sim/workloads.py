@@ -120,6 +120,16 @@ def etl_graph(rank: int = 6) -> WorkflowGraph:
     return compile_spec(spec, name=f"etl{rank}")
 
 
+# ---- reliability probe: N parallel 100ms busy-waits (Figure 8) ------------
+RELIABILITY_MEAN_MS = 100.0
+RELIABILITY_CV = 0.05
+
+
+def reliability_graph(n_tasks: int) -> WorkflowGraph:
+    return compile_spec(fanout(task("busy", RELIABILITY_MEAN_MS), n_tasks),
+                        name=f"busy{n_tasks}")
+
+
 # Ranked map-reduce with a sync barrier: scatter -> rank maps -> BARRIER ->
 # `reducers` reduces (each joined on every map by the barrier) -> publish.
 MR_SCATTER_MS = 250.0

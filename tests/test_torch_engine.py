@@ -97,12 +97,12 @@ def reference_step(name, cfg, trace):
 def port_step(name, cfg, trace, summary_backend="torch"):
     pwl = WORKLOADS[name][1](**WORKLOADS[name][2])
     block, resolver, scan = cfg
-    _, step = PQ._raptor_stream_fns(
-        W, A, pwl.flight, pwl.graph, pwl.dist, pwl.fail_prob, block,
-        resolver, scan, summary_backend, trace, "cpu")
+    _, _, step = PQ._raptor_stream_fns(
+        W, A, pwl.flight, pwl.graph, pwl.dist, pwl.fail_prob, None, None,
+        block, resolver, scan, summary_backend, trace, "cpu")
     events = events_from_numpy(reference_events(name))
     wf0 = wvector_from_numpy(np.zeros((events[0].shape[0], W), np.float32))
-    wf, outs = step(wf0, events, SLAT)
+    wf, outs = step(wf0, events, None, SLAT)
     return [wf.numpy()] + [x.numpy() for x in outs]
 
 
@@ -237,11 +237,22 @@ def test_auto_config_defaults():
 
 
 def test_fault_mode_and_unknown_backends_are_refused():
-    with pytest.raises(ValueError, match="fault-mode slice"):
-        _sim(PQ.keygen_queue(), faults=FaultProfile(crash_mtbf_ms=1e4,
-                                                    crash_restart_ms=100.0))
-    with pytest.raises(ValueError, match="fault-mode slice"):
-        _sim(PQ.keygen_queue(), recovery=RecoveryPolicy(max_retries=1))
+    """Fault mode runs on the scan substrate only: the ``queue_booking``
+    kernel books plain FCFS finish times, so ``booking_backend="kernel"``
+    is refused with an enabled profile or a non-default policy (as the
+    reference refuses its Pallas route), while the substrate and the
+    ``maxplus_scan`` summary route are accepted.  Unknown backends and a
+    flight wider than the pool are refused too."""
+    crashes = FaultProfile(crash_mtbf_ms=1e4, crash_restart_ms=100.0)
+    with pytest.raises(ValueError, match="fault injection"):
+        _sim(PQ.keygen_queue(), faults=crashes, booking_backend="kernel")
+    with pytest.raises(ValueError, match="fault injection"):
+        _sim(PQ.keygen_queue(), recovery=RecoveryPolicy(max_retries=1),
+             booking_backend="kernel")
+    assert _sim(PQ.keygen_queue(), faults=crashes, scan="logdepth",
+                summary_backend="kernel").fault_mode
+    assert not _sim(PQ.keygen_queue(), faults=FaultProfile(),
+                    booking_backend="kernel").fault_mode
     with pytest.raises(ValueError):
         _sim(PQ.keygen_queue(), booking_backend="pallas")
     with pytest.raises(ValueError):

@@ -48,6 +48,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         QueueFlightSim(keygen_queue())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         QueueFlightSim(keygen_queue(), device="cuda")
+    from repro_torch.sim.vector import VectorFlightSim, keygen_vector
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VectorFlightSim(keygen_vector())
+    assert VectorFlightSim(keygen_vector(),
+                           device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--mode", "scheduler", "--jobs", "8"])
     assert QueueFlightSim(keygen_queue(), device="cpu").device.type == "cpu"

@@ -59,10 +59,11 @@ def test_padded_tail_leaves_wstate_untouched():
     eng.submit(PoissonArrivals(sim.rate_hz, seed=1).take(6))
     eng.drain()
     live = tuple(x[:, :6] for x in eng.concatenated_events())
-    _, step = _raptor_stream_fns(sim.W, sim.A, sim.flight, sim.wl.graph,
-                                 sim.wl.dist, sim.wl.fail_prob, 1,
-                                 "fixpoint", "seq", "torch", False, "cpu")
-    wf_live, _ = step(torch.zeros((1, sim.W)), live, sim.slat)
+    _, _, step = _raptor_stream_fns(sim.W, sim.A, sim.flight, sim.wl.graph,
+                                    sim.wl.dist, sim.wl.fail_prob, None,
+                                    None, 1, "fixpoint", "seq", "torch",
+                                    False, "cpu")
+    wf_live, _ = step(torch.zeros((1, sim.W)), live, None, sim.slat)
     np.testing.assert_array_equal(eng.wf.numpy(), wf_live.numpy())
     assert bool(torch.any(eng.wf > 0))
 
