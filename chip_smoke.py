@@ -98,9 +98,29 @@ prompts of 4,096).
    of 2/3, ``reliability_vector(2, 0.3)`` and ``(4, 0.2)`` fail rates
    within 0.02 of the closed forms — and fault_sweep's i.i.d. and
    correlated open-loop rows beside ``mixture_speedup_prediction``;
-17. one JSON line listing each kernel (launches on its path, error
+17. the paper's experiments (``repro_torch.sim.experiments``):
+   ``fig6_scale_effect()`` at its defaults (the closed-loop load grids of
+   the 1-AZ/5-worker and HA deployments, 1,800 s streams of 2,131 and
+   6,394 jobs, 32 trials, each grid one batch), paper-shaped (1-AZ medium
+   ratio > 0.90, HA medium < 0.75); the HA grid again through
+   ``queue_pair_plan`` with stock on ``queue_booking`` and raptor on the
+   log-depth ``maxplus_scan`` route, every summary field bitwise equal to
+   fig6's default-route numbers and to each load's solo ``run_pair``,
+   both kernels launched; ``table7_keygen()`` on the scalar oracle (host)
+   within rel 0.08 of fig6's HA medium means, and the oracle's 1-AZ
+   medium point (the means of 16 seeds' 1,800 s streams) within rel 0.08
+   of fig6's 1-AZ medium means; ``load_sweep_util()``,
+   ``sweep_scale(trials=20000)`` (reliability within 0.02 of the exact
+   form, Table 7 within 0.06 of 0.647), ``fig7_other_workloads()``,
+   ``workflow_bank()`` (streaming ``oracle_check`` bitwise) and
+   ``fault_sweep()`` (its closed-loop rows on the ``maxplus_scan``
+   summary route) at their defaults, and ``fault_sweep()`` again on the
+   default summary route, every row bitwise equal; every wall and each
+   kernel's launches;
+18. one JSON line listing each kernel (launches on its path, error
    against the plain version, times, bound, library time; for
-   ``maxplus_scan`` also its launches on the fault paths).  Every
+   ``maxplus_scan`` also its launches on the fault paths; for both
+   scheduler kernels their launches on the sweep path).  Every
    kernel's ``ms`` and ``library_ms`` is the device's time: a CUDA graph
    of the calls replayed between CUDA events (``graph_ms``), inputs cold
    (copies that outgrow the L2, in turn) for the LM kernels, and for the
@@ -108,7 +128,7 @@ prompts of 4,096).
    (``maxplus_scan``, ``decode_attention``, ``ssd_scan``) is the pace of
    an event-timed loop of calls, which the host sets for short kernels,
    and ``plain_ms`` is timed so too;
-18. the last line: ``{"ok": true, "device": {...}}``.
+19. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.  A copy
@@ -164,6 +184,7 @@ FAULT_POLICY = dict(timeout_ms=6_000.0, max_retries=1, backoff_ms=50.0,
 FAULT_STOCK_BLOCK = 256
 FAULT_CHECK_JOBS = 2000
 OPEN_LOOP_TRIALS = 40_000
+ONE_AZ_SEEDS = 16            # scalar-oracle streams beside fig6's 1-AZ point
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
@@ -461,6 +482,192 @@ def open_loop_phase(dev, card, trials=OPEN_LOOP_TRIALS) -> dict:
         + f" [{card}]")
     return dict(pairs=out, checks=[list(c) for c in checks],
                 fault_sweep=rows, walls_s=walls)
+
+
+def experiments_phase(dev, card) -> dict:
+    """Phase 17: the paper's experiments on the card
+    (``repro_torch.sim.experiments``).  fig6 at its defaults (the
+    vector engine's load grids on 1,800 s streams, 32 trials); its HA grid
+    again through ``queue_pair_plan`` on the kernel routes — stock on
+    ``queue_booking``, raptor on the log-depth ``maxplus_scan`` route —
+    bitwise equal to fig6's default-route numbers and to each
+    configuration's solo ``run_pair``; Table 7 on the scalar oracle beside
+    fig6's HA medium point, and the oracle's 1-AZ medium point beside
+    fig6's; then ``load_sweep_util``, ``sweep_scale``,
+    ``fig7_other_workloads``, ``workflow_bank`` and ``fault_sweep`` at
+    their defaults (``fault_sweep``'s closed-loop rows on the
+    ``maxplus_scan`` summary route, held bitwise to a second run on the
+    default route)."""
+    import torch
+    from repro_torch.core import analytics as an
+    from repro_torch.kernels.maxplus_scan.ops import maxplus_entries
+    from repro_torch.kernels.queue_booking.ops import book_stream
+    from repro_torch.launch.bench_kernels import booking_stream, graph_ms
+    from repro_torch.sim import experiments as X
+    from repro_torch.sim.sweeps import queue_pair_plan
+    from repro_torch.sim.vector_queue import QueueFlightSim, keygen_queue
+    from repro_torch.sim.workloads import keygen_workload
+    walls, launches = {}, {}
+    loads = ("low", "medium", "high")
+
+    def timed(name, fn):
+        book_stream.launches = 0
+        maxplus_entries.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = {"queue_booking": book_stream.launches,
+                          "maxplus_scan": maxplus_entries.launches}
+        return out
+
+    def same(a, b):
+        return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+    # 1. fig6 at its defaults
+    fig6 = timed("fig6", lambda: X.fig6_scale_effect(device=dev))
+    small = fig6["one_az_5w/medium"]["mean_ratio"]
+    large = fig6["three_az_15w/medium"]["mean_ratio"]
+    n_small, n_ha = X.fig6_jobs(X.LOW_AVAIL), X.fig6_jobs(X.HA)
+    say(f"phase 17 fig6 (vector, 32 trials of {n_small} / {n_ha} jobs): "
+        + ", ".join(f"{k} {v['mean_ratio']:.4f}" for k, v in fig6.items()))
+    if not (small > 0.90 and large < 0.75 and large < small):
+        raise AssertionError(f"fig6 not paper-shaped: 1-AZ/5w medium "
+                             f"{small}, HA medium {large}")
+
+    # 2. the HA grid through the kernel routes, one plan
+    block = n_ha // LOGDEPTH_NB
+    sims = [QueueFlightSim(keygen_queue(), load=load, seed=0, device=dev,
+                           booking_backend="kernel", scan="logdepth",
+                           block=block, summary_backend="kernel", **X.HA)
+            for load in loads]
+    kern = timed("ha_grid_kernel_routes",
+                 lambda: queue_pair_plan(sims, n_ha, 32).run())
+    sweep_launches = launches["ha_grid_kernel_routes"]
+    say(f"phase 17 HA grid on the kernel routes (stock queue_booking, "
+        f"raptor log-depth block {block} with maxplus_scan): launches "
+        f"{sweep_launches} for {len(loads)} configs x 32 trials")
+    if min(sweep_launches.values()) < 1:
+        raise AssertionError(f"a kernel of the sweep path never launched: "
+                             f"{sweep_launches}")
+    solo = {}
+    for load in loads:
+        solo[load] = timed(f"solo_{load}", lambda load=load: QueueFlightSim(
+            keygen_queue(), load=load, seed=0, device=dev,
+            **X.HA).run_pair(n_ha, 32))
+    for load, got in zip(loads, kern):
+        if not (same(got, fig6[f"three_az_15w/{load}"])
+                and same(got, solo[load])):
+            raise AssertionError(
+                f"HA {load}: kernel-route sweep {got} != default-route "
+                f"sweep {fig6['three_az_15w/' + load]} or solo "
+                f"{solo[load]}")
+    say("phase 17 HA grid: kernel-route sweep == fig6's default-route "
+        "sweep == solo run_pair per load, every summary field bitwise")
+    # does a launch of configs x trials rows cost more than one of trials?
+    k1_rows = {}
+    for T in (32, 32 * len(loads)):
+        tape = booking_stream(T, 2 * n_ha, X.HA["num_workers"], 0.45, 0, 0,
+                              dev)
+        k1_rows[T] = graph_ms(lambda r, s, w: book_stream(r, s, w), [tape],
+                              20)
+    say(f"phase 17 queue_booking per launch on a stock tape of the grid's "
+        f"shape (N={2 * n_ha}, W=15): " + ", ".join(
+            f"{T} rows {ms:.4f} ms" for T, ms in k1_rows.items())
+        + f" [{card}]")
+
+    # 3. Table 7 on the scalar oracle (host) beside fig6's HA medium point
+    t7 = timed("table7_scalar", X.table7_keygen)
+    for eng in ("stock", "raptor"):
+        v, o = fig6["three_az_15w/medium"][eng]["mean"], t7[eng]["mean"]
+        say(f"phase 17 table7 {eng}: scalar oracle mean {o:.1f} ms, "
+            f"vector {v:.1f} ms (rel {abs(v - o) / o:.4f})")
+        if not abs(v - o) <= 0.08 * o:
+            raise AssertionError(f"table7 {eng}: vector {v} vs scalar {o}")
+    # the 1-AZ/5-worker medium point on the scalar oracle: the means of
+    # ONE_AZ_SEEDS 1,800 s streams (near saturation one stream's raptor
+    # mean varies ~8% from seed to seed; fig6 averages 32 streams)
+    one_az = timed("one_az_scalar", lambda: [
+        X.run_pair(keygen_workload, X.LOW_AVAIL, load="medium",
+                   duration_s=1800.0, seed=s) for s in range(ONE_AZ_SEEDS)])
+    one_az_means = {}
+    for eng in ("stock", "raptor"):
+        v = fig6["one_az_5w/medium"][eng]["mean"]
+        seeds = [r[eng]["mean"] for r in one_az]
+        o = sum(seeds) / len(seeds)
+        one_az_means[eng] = dict(vector=v, oracle=o, oracle_seed0=seeds[0])
+        say(f"phase 17 1-AZ medium {eng}: scalar oracle mean {o:.1f} ms "
+            f"over {ONE_AZ_SEEDS} seeds (seed 0: {seeds[0]:.1f}), vector "
+            f"{v:.1f} ms (rel {abs(v - o) / o:.4f})")
+        if not abs(v - o) <= 0.08 * o:
+            raise AssertionError(f"1-AZ medium {eng}: vector {v} vs "
+                                 f"scalar {o}")
+    ratio = one_az_means["raptor"]["oracle"] / one_az_means["stock"]["oracle"]
+    say(f"phase 17 1-AZ medium ratio: scalar oracle {ratio:.4f}, vector "
+        f"{small:.4f}")
+
+    # 4. the other experiments at their defaults
+    util = timed("load_sweep_util", lambda: X.load_sweep_util(device=dev))
+    scale = timed("sweep_scale", lambda: X.sweep_scale(trials=20_000,
+                                                       device=dev))
+    fig7 = timed("fig7", lambda: X.fig7_other_workloads(device=dev))
+    bank = timed("workflow_bank", lambda: X.workflow_bank(device=dev))
+    faults = timed("fault_sweep", lambda: X.fault_sweep(
+        device=dev, summary_backend="kernel"))
+    # the same rows on the default summary route: K2 at fault_sweep's
+    # shapes (1,024 jobs x 16 trials, brownouts, the policy) is held to
+    # its plain route bitwise
+    faults_default = timed("fault_sweep_default_route",
+                           lambda: X.fault_sweep(device=dev))
+    if not same(faults, faults_default):
+        raise AssertionError(
+            "fault_sweep: maxplus_scan summary route != default route: "
+            + ", ".join(k for k in faults
+                        if not same(faults[k], faults_default[k])))
+    say("phase 17 fault_sweep: maxplus_scan summary route == default "
+        "route, every row bitwise")
+    for key, row in scale["reliability"].items():
+        if not abs(row["raptor_fail"] - row["theory_exact"]) <= 0.02:
+            raise AssertionError(f"sweep_scale reliability {key}: {row}")
+    t7v = scale["table7_keygen"]["mean_ratio"]
+    if not abs(t7v - 0.647) <= 0.06:
+        raise AssertionError(f"sweep_scale table7 ratio {t7v}")
+    for name in ("etl", "mapreduce"):
+        if bank[name]["streaming_bitwise_oracle"] is not True:
+            raise AssertionError(f"workflow_bank {name}: streaming "
+                                 f"oracle_check not bitwise")
+    for name in ("wordcount", "thumbnail"):
+        if not 0.0 < fig7[name]["mean_ratio"] < 1.05:
+            raise AssertionError(f"fig7 {name}: {fig7[name]['mean_ratio']}")
+    say("phase 17 load_sweep_util: " + ", ".join(
+        f"{k} {v['mean_ratio']:.4f}" for k, v in util.items()))
+    say(f"phase 17 sweep_scale: table7 {t7v:.4f} (0.647 +- 0.06); AZ "
+        f"sweep {scale['az_sweep']['ratio_by_azs']}; reliability "
+        + ", ".join(f"{k} {v['raptor_fail']:.4f} vs {v['theory_exact']:.4f}"
+                    for k, v in scale["reliability"].items()))
+    say(f"phase 17 fig7: wordcount {fig7['wordcount']['mean_ratio']:.4f}, "
+        f"thumbnail {fig7['thumbnail']['mean_ratio']:.4f}; workflow_bank: "
+        + ", ".join(f"{k} {v['mean_ratio']:.4f} (streaming "
+                    f"{v['streaming']['jobs_per_s']:.1f} jobs/s, oracle "
+                    f"bitwise {v['streaming_bitwise_oracle']})"
+                    for k, v in bank.items()))
+    say("phase 17 fault_sweep: " + ", ".join(
+        f"{k} {v.get('measured_ratio', v.get('mean_ratio')):.4f}"
+        for k, v in faults.items() if k != "profile")
+        + f"; prediction {faults['open_loop/iid']['predicted_ratio']:.4f}")
+    say("phase 17 kernel launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items() if any(v.values())))
+    say("phase 17 walls s: " + ", ".join(f"{k} {v:.2f}"
+                                         for k, v in walls.items())
+        + f"; total {sum(walls.values()):.2f} [{card}]")
+    return dict(fig6=fig6, ha_grid_kernel=kern, table7=t7,
+                one_az_medium_means=one_az_means,
+                load_sweep_util=util, sweep_scale=scale, fig7=fig7,
+                workflow_bank=bank, fault_sweep=faults, walls_s=walls,
+                launches=launches, sweep_launches=sweep_launches,
+                k1_ms_by_rows=k1_rows,
+                theory_ratio=an.response_ratio_paper())
 
 
 def main() -> int:
@@ -1344,7 +1551,11 @@ def main() -> int:
     results["fault_service"] = fault_service_phase(dev, card)
     results["open_loop"] = open_loop_phase(dev, card)
 
-    # ---- 17. kernels line --------------------------------------------------
+    # ---- 17. the paper's experiments ---------------------------------------
+    results["experiments"] = experiments_phase(dev, card)
+    sweep = results["experiments"]["sweep_launches"]
+
+    # ---- 18. kernels line --------------------------------------------------
     kernels = [
         {"name": "queue_booking", "route": "cuda",
          "source": "src/repro_torch/csrc/queue_booking.cu",
@@ -1352,7 +1563,8 @@ def main() -> int:
          "launches": launches["queue_booking"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes", "library_ms": None,
-         "chain_model_ms": k1_chain, "alu_model_ms": k1_alu},
+         "chain_model_ms": k1_chain, "alu_model_ms": k1_alu,
+         "sweep_launches": sweep["queue_booking"]},
         {"name": "maxplus_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/maxplus_scan.cu",
          "replaces": "src/repro/kernels/maxplus_scan/kernel.py:57",
@@ -1363,6 +1575,10 @@ def main() -> int:
          "floor1_ms": k2_floor1, "yardstick_ms": cummax_ms,
          "fault_launches": results["fault_engine"]["launches"],
          "fault_service_launches": results["fault_service"]["launches"],
+         "sweep_launches": sweep["maxplus_scan"],
+         "fault_sweep_launches":
+             results["experiments"]["launches"]["fault_sweep"][
+                 "maxplus_scan"],
          "yardstick": "torch.cummax of off alone (the inclusive max "
                       "prefix): no PyTorch call computes the kernel's "
                       "exclusive entries and exit vector"},

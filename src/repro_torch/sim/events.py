@@ -1,4 +1,5 @@
-"""Open-arrival processes of the streaming traffic bank.
+"""Event infrastructure: the scalar oracle's cancellable discrete-event
+queue, plus the open-arrival processes of the streaming traffic bank.
 
 The arrival processes are host-side numpy generators (the streaming
 scheduler ingests the next microbatch on the host while the device books
@@ -11,7 +12,10 @@ whole-trace replay of the concatenated stream (tests/test_torch_streaming.py).
 """
 from __future__ import annotations
 
+import heapq
+import itertools
 import math
+from typing import Callable
 
 import numpy as np
 
@@ -158,3 +162,35 @@ class DiurnalArrivals(ArrivalProcess):
                     offsets[i] = t
                     break
         return np.diff(offsets, prepend=0.0)
+
+
+class EventQueue:
+    """Time-ordered callbacks for the scalar oracle
+    (:mod:`repro_torch.sim.flights`).  Equal times pop in scheduling order
+    (a counter breaks the tie); a cancelled event is skipped when popped."""
+
+    def __init__(self):
+        self._pq = []
+        self._counter = itertools.count()
+        self._cancelled = set()
+        self.now = 0.0
+
+    def schedule(self, t: float, fn: Callable, *args) -> int:
+        eid = next(self._counter)
+        heapq.heappush(self._pq, (t, eid, fn, args))
+        return eid
+
+    def cancel(self, eid: int):
+        self._cancelled.add(eid)
+
+    def run(self, until: float = float("inf")):
+        while self._pq:
+            t, eid, fn, args = heapq.heappop(self._pq)
+            if eid in self._cancelled:
+                self._cancelled.discard(eid)
+                continue
+            if t > until:
+                self.now = until
+                return
+            self.now = t
+            fn(*args)

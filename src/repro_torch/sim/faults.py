@@ -1,8 +1,7 @@
 """Correlated fault injection: AZ brownouts and worker crashes as interval
 tables.
 
-The port of ``repro/sim/faults.py`` (without the scalar ``*_np`` interval
-helpers, which belong to the scalar oracle).  Two fault processes:
+The port of ``repro/sim/faults.py``.  Two fault processes:
 
 * **AZ brownouts**: each AZ alternates healthy/degraded through an on/off
   CTMC (exp(``az_mtbf_ms``) up, exp(``az_mttr_ms``) down).  While degraded,
@@ -31,7 +30,8 @@ the table (tests/test_torch_faults.py) and keep a booking's cost
 logarithmic in the table width.  The query axis is explicit, as in
 ``torch.searchsorted``: ``t`` is ``(..., M)``, ``M`` queries against each
 ``(..., C)`` table row with the same leading axes; the reference's one
-query per row is ``t[..., None]``.
+query per row is ``t[..., None]``.  The ``*_np`` helpers are the scalar
+oracle's full scans over one numpy table row.
 """
 from __future__ import annotations
 
@@ -196,3 +196,23 @@ def first_start_in(s, e, starts):
     i = torch.searchsorted(starts, s, right=True)
     c = torch.gather(starts, -1, i.clamp_max(starts.shape[-1] - 1))
     return torch.where((i < starts.shape[-1]) & (c < e), c, _INF)
+
+
+# --------------------------------------------------------------------------
+# interval helpers — scalar numpy forms (the event-driven oracle)
+# --------------------------------------------------------------------------
+
+def interval_active_np(t: float, starts, ends) -> bool:
+    return bool(np.any((t >= starts) & (t < ends)))
+
+
+def push_out_np(t: float, starts, ends) -> float:
+    hit = (t >= starts) & (t < ends)
+    if hit.any():
+        return float(ends[hit].max())
+    return float(t)
+
+
+def first_start_in_np(s: float, e: float, starts) -> float:
+    inside = starts[(starts > s) & (starts < e)]
+    return float(inside.min()) if inside.size else math.inf

@@ -1,8 +1,7 @@
 """Attempt-level recovery policy: timeout, bounded retry, hedging.
 
-The port of ``repro/sim/policies.py`` (without the scalar oracle's
-``attempt_outcome_np``/``fold_chain_np``).  :class:`RecoveryPolicy` names
-the recovery design space declaratively:
+The port of ``repro/sim/policies.py``.  :class:`RecoveryPolicy` names the
+recovery design space declaratively:
 
 * ``timeout_ms`` — an attempt running longer fails at the timeout;
 * ``max_retries``/``backoff_ms``/``backoff_jitter`` — a failed attempt is
@@ -18,7 +17,8 @@ failures broadcast nothing.
 
 :func:`fold_chain` turns a whole timeout/retry/backoff chain into ONE
 ``(end, failed)`` pair at scheduling time, so the race keeps one event per
-(member, task); :func:`chain_transform` is its open-loop limit.
+(member, task); :func:`chain_transform` is its open-loop limit, and
+:func:`fold_chain_np` the scalar oracle's float64 twin.
 
 Rounding: the reference runs these folds jitted on XLA, which contracts a
 multiply feeding an add into one fused multiply-add and drops
@@ -35,7 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch.sim.faults import (FaultProfile, first_start_in,
-                                    interval_active, push_out)
+                                    first_start_in_np, interval_active,
+                                    interval_active_np, push_out,
+                                    push_out_np)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,3 +249,44 @@ def chain_transform(z, u_err, u_jit, deg, *, policy: RecoveryPolicy,
         total = torch.where(failed, again, total)
         failed = failed & a_fail
     return total, failed
+
+
+# --------------------------------------------------------------------------
+# the scalar oracle's forms (float64 numpy, one attempt at a time)
+# --------------------------------------------------------------------------
+
+def attempt_outcome_np(t: float, z: float, u_err: float, deg_bs, deg_be,
+                       cs, ce, *, policy: RecoveryPolicy,
+                       faults: FaultProfile | None, base_fail: float):
+    """One scalar attempt: returns (start, end, failed)."""
+    s = push_out_np(t, cs, ce)
+    deg = (faults is not None and interval_active_np(s, deg_bs, deg_be))
+    zi = z * (faults.degraded_inflation if deg else 1.0) \
+        if faults is not None else z
+    dur = min(zi, policy.timeout_ms)
+    p = ((faults.degraded_fail_prob if deg else base_fail)
+         if faults is not None else base_fail)
+    a_fail = (u_err < p) or (zi > policy.timeout_ms)
+    c1 = first_start_in_np(s, s + dur, cs)
+    crashed = c1 < s + dur
+    end = c1 if crashed else s + dur
+    return s, end, (a_fail or crashed)
+
+
+def fold_chain_np(t0: float, z: float, rng, deg_bs, deg_be, cs, ce, *,
+                  policy: RecoveryPolicy, faults: FaultProfile | None,
+                  base_fail: float):
+    """Scalar chain fold — the oracle's twin of :func:`fold_chain`.
+    Draws the per-attempt error/jitter uniforms from ``rng`` (the vector
+    engines pre-draw theirs; both are i.i.d. per attempt)."""
+    t = float(t0)
+    end, a_fail = t, True
+    for r in range(policy.max_retries + 1):
+        _, end, a_fail = attempt_outcome_np(
+            t, z, float(rng.random()), deg_bs, deg_be, cs, ce,
+            policy=policy, faults=faults, base_fail=base_fail)
+        if not a_fail:
+            return end, False
+        if r < policy.max_retries:
+            t = end + policy.backoff(r, float(rng.random()))
+    return end, True

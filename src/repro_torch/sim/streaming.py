@@ -138,10 +138,10 @@ class StreamingScheduler:
         padded[:arr.size] = arr
         sim, wl = self.sim, self.sim.wl
         arrivals = torch.as_tensor(padded, dtype=torch.float32).to(
-            self.device)[None]
+            self.device)[None, None]
         events = self._draw(self._gen, arrivals, sim.rho, wl.task_means,
                             wl.offset_ms, wl.cv, wl.raptor_stage_ms,
-                            sim.oh_mu, sim.oh_sigma)
+                            [sim.oh_mu], [sim.oh_sigma])
         if self._events is not None:
             self._events.append(events)
         wf, outs = self._step(self.wf, events, self.env, sim.slat)

@@ -1,8 +1,7 @@
 """Open-loop vectorized Monte-Carlo flight simulator, and the draw
 primitives the vector engines share.
 
-The port of ``repro/sim/vector.py`` (its batched config sweeps come with
-``sim/sweeps.py``).  This is the OPEN-LOOP tier: independent-task
+The port of ``repro/sim/vector.py``.  This is the OPEN-LOOP tier: independent-task
 manifests (ssh-keygen, the Figure-8 reliability probes), one trial = one
 invocation on an otherwise idle cluster, i.e. the zero-queueing limit;
 the closed-loop tier is :mod:`repro_torch.sim.vector_queue`.  A whole
@@ -28,6 +27,15 @@ timeout/retry chains a draw transform
 (:func:`repro_torch.sim.policies.chain_transform`); crashes and hedging
 need wall-clock booking times and belong to the closed-loop tier.
 
+Batched config sweeps (:func:`sweep_pairs`, through
+:mod:`repro_torch.sim.sweeps`) stack many (flight, num_azs, rho, load)
+points on a leading configuration axis: flights are padded to a power of
+two with the padded members masked out of the race, every configuration
+of a bucket reads the same draws, and a configuration whose flight and
+AZ count equal its bucket's pads is bitwise its solo
+:meth:`VectorFlightSim.run_pair`, which runs the same core with one
+configuration.
+
 Draws come from an explicit ``torch.Generator`` on the engine's device,
 so they differ from the reference's threefry stream: the engines are held
 to the reference and to the closed forms by distribution
@@ -45,7 +53,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.analytics import (flight_fail_rate_batch,
                                         forkjoin_fail_rate_batch,
-                                        summarize_batch)
+                                        summarize_masked_batch)
 from repro_torch.sim.cluster import OverheadModel, lognormal_params
 from repro_torch.sim.faults import FaultProfile
 from repro_torch.sim.policies import (RecoveryPolicy, chain_transform,
@@ -128,12 +136,6 @@ def _service_draws(gen, shape, mean, dist: str, cv):
     return mean * unit_draws(gen, shape, dist, cv)
 
 
-def _overhead_draws(gen, shape, med, p90):
-    mu, sigma = lognormal_params(med, p90)    # Table 6 (ha, load) point
-    return torch.exp(mu + sigma * torch.randn(shape, generator=gen,
-                                              device=gen.device))
-
-
 def _stationary_deg(gen, trials: int, num_azs: int, fp: FaultProfile):
     """(trials, A) stationary brownout snapshot; ``correlated`` draws ONE
     process and broadcasts it — the whole cluster degrades together."""
@@ -158,7 +160,7 @@ def _flight_trial(z_seq, fail_seq, t_join, seq, slat, active=None,
     t_join:   (..., F)    member join times (arrival control-plane overhead)
     seq:      (F, K) or (..., F, K) member task orders (cyclic shifts or
               per-trial permutations)
-    active:   (F,) bool or None — padding mask for batched sweeps;
+    active:   (..., F) bool or None — padding mask for batched sweeps;
               inactive members never join (fin stays inf, no candidates)
     num_events: a tighter exact trip budget when the caller can prove one
               — with no failures every event is the completion of a
@@ -176,7 +178,7 @@ def _flight_trial(z_seq, fail_seq, t_join, seq, slat, active=None,
     done = torch.zeros(lead + (K,), dtype=torch.bool, device=dev)
     attempted = (k_ar == 0).expand(lead + (F, K))
     if active is not None:
-        attempted = attempted | ~active[:, None]
+        attempted = attempted | ~active[..., None]
     cur = seq_b[..., 0]                   # current task id per member
     curfail = fail_seq[..., 0]            # whether that attempt will error
     fin = t_join + z_seq[..., 0]
@@ -223,23 +225,48 @@ def _flight_trial(z_seq, fail_seq, t_join, seq, slat, active=None,
     return t_resp, ok
 
 
-def _raptor_batch(gen, *, trials, flight, num_tasks, num_azs, dist, rho,
-                  mean, offset, cv, fail_prob, stage_oh, slat, oh_med,
-                  oh_p90, sequences="cyclic", faults=None, recovery=None):
-    """``trials`` raptor invocations on an idle cluster: ``(t_resp, ok,
-    fail)`` with the raw attempt-error draws ``(trials, F, K)``."""
-    F, K, A = flight, num_tasks, num_azs
+# --------------------------------------------------------------------------
+# batched config sweeps: pad-and-mask over flight size, per-config rho/AZ/load
+# --------------------------------------------------------------------------
+# One body per engine.  The configurations of one bucket stack on a leading
+# axis C and read ONE set of draws, shaped as a run at the bucket's pads
+# (same generator seed, same order): flights pad to ``flight_max`` with the
+# inactive members never joining, the AZ index gathers from an
+# ``azs_max``-row shared block, and the Table-6 overhead enters as per-config
+# (mu, sigma).  A solo :meth:`VectorFlightSim.run` is the C = 1 case at its
+# own pads.
+
+def _cfg_col(x, nd: int, device):
+    """Per-config values as a float32 ``(C, 1, ..., 1)`` column with ``nd``
+    trailing unit axes, each value rounded once from float64."""
+    t = torch.as_tensor(x, dtype=torch.float64, device=device)
+    return t.to(torch.float32).reshape((-1,) + (1,) * nd)
+
+
+def _raptor_sweep_core(gen, flight, num_azs, rho, mean, offset, cv,
+                       stage_oh, slat, oh_mu, oh_sigma, *, trials,
+                       flight_max, num_tasks, azs_max, dist, fail_prob,
+                       faults=None, policy=None, sequences="cyclic"):
+    """Raptor races of C configurations on an idle cluster:
+    ``flight``/``num_azs``/``rho``/``oh_mu``/``oh_sigma`` hold one value
+    per configuration.  Returns ``(t_resp, ok, fail)`` with a leading C
+    axis; ``fail`` holds the raw attempt-error draws ``(C, trials, F, K)``
+    with padded members neutral."""
+    F, K, A = flight_max, num_tasks, azs_max
     dev = gen.device
-    fault_mode, pol, fp, anyfail = fault_statics(fail_prob, faults,
-                                                 recovery)
-    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32,  # noqa: E731
-                                    device=dev)
-    az = torch.arange(F, device=dev) % A          # HA spread placement
-    # one draw for the AZ-shared S block and the private X block
+    fault_mode, pol, fp, anyfail = fault_statics(fail_prob, faults, policy)
+    f_ar = torch.arange(F, device=dev)
+    flight = torch.as_tensor(flight, dtype=torch.long, device=dev)
+    num_azs = torch.as_tensor(num_azs, dtype=torch.long, device=dev)
+    active = (f_ar < flight[:, None])[:, None, :]         # (C, 1, F)
+    az = f_ar % num_azs[:, None]                          # (C, F)
     sx = _service_draws(gen, (trials, A + F, K), mean, dist, cv)
     s, x = sx[:, :A, :], sx[:, A:, :]
-    rho = f32(rho)
-    z = rho * s[:, az, :] + (1 - rho) * x + f32(offset) + f32(stage_oh)
+    rho = _cfg_col(rho, 3, dev)
+    s_m = s[:, az, :].transpose(0, 1)                     # (C, T, F, K)
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,  # noqa: E731
+                                    device=dev)
+    z = rho * s_m + (1 - rho) * x + f32(offset) + f32(stage_oh)
     if fault_mode:
         # stationary brownout snapshot per (trial, AZ) + the open-loop
         # chain transform: attempt durations inflate while degraded,
@@ -249,7 +276,8 @@ def _raptor_batch(gen, *, trials, flight, num_tasks, num_azs, dist, rho,
         R = pol.max_retries
         u_err = torch.rand((trials, F, K, R + 1), generator=gen, device=dev)
         u_jit = torch.rand((trials, F, K, R), generator=gen, device=dev)
-        z, fail = chain_transform(z, u_err, u_jit, deg[:, az, None],
+        deg_m = deg[:, az].transpose(0, 1)                # (C, T, F)
+        z, fail = chain_transform(z, u_err, u_jit, deg_m[..., None],
                                   policy=pol, faults=fp,
                                   base_fail=fail_prob)
     elif fail_prob == 0.0:
@@ -257,13 +285,14 @@ def _raptor_batch(gen, *, trials, flight, num_tasks, num_azs, dist, rho,
     else:
         fail = torch.rand((trials, F, K), generator=gen,
                           device=dev) < fail_prob
-    oh = _overhead_draws(gen, (trials, F + 1), oh_med, oh_p90)
+    C = z.shape[0]
+    fail = fail.expand(C, trials, F, K)
+    oh = torch.exp(_cfg_col(oh_mu, 2, dev) + _cfg_col(oh_sigma, 2, dev)
+                   * torch.randn((trials, F + 1), generator=gen, device=dev))
     # member 0 joins at the arrival overhead; later members pay a second
     # control-plane hop (the fork's recursive invocation, §3.3.2)
-    t_join = oh[:, :1] + torch.where(torch.arange(F, device=dev) == 0, 0.0,
-                                     oh[:, 1:])
-    # error-free races complete in exactly K events (see _flight_trial)
-    events = K if not anyfail else F * K
+    t_join = oh[..., :1] + torch.where(f_ar == 0, 0.0, oh[..., 1:])
+    t_join = torch.where(active, t_join, _INF)            # padding: never
     if sequences == "random":
         # a fresh uniform order per (trial, member)
         seq = torch.argsort(torch.rand((trials, F, K), generator=gen,
@@ -271,33 +300,32 @@ def _raptor_batch(gen, *, trials, flight, num_tasks, num_azs, dist, rho,
     else:
         seq = torch.stack([torch.roll(torch.arange(K, device=dev), -(m % K))
                            for m in range(F)])
-    seq_b = seq.expand(trials, F, K)
+    seq_b = seq.expand(C, trials, F, K)
     # permute draws into sequence order once, outside the event loop
     z_seq = torch.gather(z, -1, seq_b)
     fail_seq = torch.gather(fail, -1, seq_b)
-    t_resp, ok = _flight_trial(z_seq, fail_seq, t_join, seq, slat,
+    # error-free races complete in exactly K events (see _flight_trial)
+    events = K if not anyfail else F * K
+    t_resp, ok = _flight_trial(z_seq, fail_seq, t_join, seq, slat, active,
                                num_events=events)
-    return t_resp, ok, fail
+    # a padded member's error draw never ran, so it must be neutral in the
+    # all-attempts-errored reduction: "contributes no rescue attempt"
+    return t_resp, ok, fail | ~active[..., None]
 
 
-def _stock_service_mix(gen, trials, num_tasks, rho, mean, offset, dist, cv):
-    """Stock per-task service times: distinct tasks never share an S
-    draw, but each task's time is still the rho-mixture of two i.i.d.
-    draws — same mean, lighter tail than one raw draw."""
-    zz = _service_draws(gen, (trials, 2, num_tasks), mean, dist, cv)
-    rho = torch.as_tensor(rho, dtype=torch.float32, device=gen.device)
-    return rho * zz[:, 0] + (1 - rho) * zz[:, 1] + offset
-
-
-def _stock_batch(gen, *, trials, num_tasks, dist, rho, mean, offset, cv,
-                 fail_prob, oh_med, oh_p90, num_azs=3, faults=None,
-                 recovery=None):
-    """``trials`` fork-join invocations: ``(t_resp, ok, fail)`` with the
-    raw task-error draws ``(trials, K)``."""
+def _stock_sweep_core(gen, rho, mean, offset, cv, oh_mu, oh_sigma, *,
+                      trials, num_tasks, dist, fail_prob, num_azs=3,
+                      faults=None, policy=None):
+    """Fork-join invocations of C configurations (``rho``/``oh_mu``/
+    ``oh_sigma`` per configuration); ``(t_resp, ok, fail)`` with a leading
+    C axis and the raw task-error draws ``(C, trials, K)``."""
     dev = gen.device
-    fault_mode, pol, fp, _ = fault_statics(fail_prob, faults, recovery)
-    z = _stock_service_mix(gen, trials, num_tasks, rho, mean, offset, dist,
-                           cv)
+    fault_mode, pol, fp, _ = fault_statics(fail_prob, faults, policy)
+    # distinct tasks never share an S draw, but each task's time is still
+    # the rho-mixture of two i.i.d. draws: same mean, lighter tail
+    zz = _service_draws(gen, (trials, 2, num_tasks), mean, dist, cv)
+    rho = _cfg_col(rho, 2, dev)
+    z = rho * zz[:, 0] + (1 - rho) * zz[:, 1] + offset
     if fault_mode:
         # fork-join tasks spread round-robin over the AZs; each folds its
         # own timeout/retry chain
@@ -318,10 +346,68 @@ def _stock_batch(gen, *, trials, num_tasks, dist, rho, mean, offset, cv,
     else:
         fail = torch.rand((trials, num_tasks), generator=gen,
                           device=dev) < fail_prob
-    oh = _overhead_draws(gen, (trials,), oh_med, oh_p90)
-    t_resp = oh + z.amax(dim=1)                   # fork-join: wait for max
-    ok = ~fail.any(dim=1)
-    return t_resp, ok, fail
+    oh = torch.exp(_cfg_col(oh_mu, 1, dev) + _cfg_col(oh_sigma, 1, dev)
+                   * torch.randn((trials,), generator=gen, device=dev))
+    t_resp = oh + z.amax(dim=-1)                  # fork-join: wait for max
+    fail = fail.expand(z.shape)
+    return t_resp, ~fail.any(dim=-1), fail
+
+
+def pow2_pad(n: int) -> int:
+    """Smallest power of two >= n — the pad-and-mask bucket width: padding
+    to the next power of two keeps the masked waste under 2x while every
+    configuration of a bucket shares one draw and one batch."""
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def bucket_by_pad(sizes):
+    """Group config indices by their pow2-padded size: {pad: [indices]}."""
+    buckets = {}
+    for i, n in enumerate(sizes):
+        buckets.setdefault(pow2_pad(n), []).append(i)
+    return buckets
+
+
+def sweep_pairs(wl: "VectorWorkload", configs, *, trials: int = 20_000,
+                seed: int = 0, devices=None, device=None):
+    """Run many (flight, num_azs, rho, load) points, one batch per flight
+    bucket for raptor and one for stock.
+
+    ``configs`` is a sequence of dicts with keys ``flight``, ``num_azs``,
+    and optional ``rho`` (default 0.95) and ``load`` (default "medium").
+    Returns one dict per config with stock/raptor summaries + mean ratio.
+    A thin plan over :mod:`repro_torch.sim.sweeps`; runs on the CUDA card
+    unless ``device`` says otherwise.
+    """
+    from repro_torch.sim.sweeps import open_loop_pair_plan
+    return open_loop_pair_plan(wl, configs, trials=trials, seed=seed,
+                               device=device).run(devices=devices)
+
+
+# --------------------------------------------------------------------------
+# summaries: reduced on the device, one host transfer
+# --------------------------------------------------------------------------
+
+SUMMARY_KEYS = ("mean", "median", "p90", "p99", "scv", "n", "fail_rate",
+                "n_failed")
+
+
+def summary_row(resp, ok) -> torch.Tensor:
+    """The success-conditioned summary of one batch
+    (:func:`repro_torch.core.analytics.summarize_masked_batch`) as a
+    float64 row in :data:`SUMMARY_KEYS` order, on the batch's device: the
+    solo engines and the sweeps reduce through this one function, so a
+    sweep's summaries are its solo runs', bit for bit."""
+    s = summarize_masked_batch(resp, ok)
+    return torch.stack([torch.as_tensor(s[k], device=resp.device)
+                        .to(torch.float64) for k in SUMMARY_KEYS])
+
+
+def host_summary(row) -> dict:
+    """A :func:`summary_row` on the host as a dict (counts as ints)."""
+    vals = row.tolist()
+    return {k: (int(v) if k in ("n", "n_failed") else float(v))
+            for k, v in zip(SUMMARY_KEYS, vals)}
 
 
 # --------------------------------------------------------------------------
@@ -353,17 +439,7 @@ class VectorResult:
         """Delay summary conditioned on SUCCESS (a failed job's "response"
         is its failure-detection time, not a delay), with the failure
         accounting alongside: ``n`` counts the successful jobs."""
-        ok = self.ok.reshape(-1)
-        resp = self.response_ms.reshape(-1)[ok]
-        if resp.numel():
-            s = {k: (int(v) if k == "n" else float(v))
-                 for k, v in summarize_batch(resp).items()}
-        else:
-            nan = float("nan")
-            s = dict(mean=nan, median=nan, p90=nan, p99=nan, scv=nan, n=0)
-        s["fail_rate"] = self.fail_rate()
-        s["n_failed"] = int(ok.numel() - int(ok.sum()))
-        return s
+        return host_summary(summary_row(self.response_ms, self.ok).cpu())
 
 
 class VectorFlightSim:
@@ -391,6 +467,8 @@ class VectorFlightSim:
         self.sequences = sequences
         ha = self.num_azs > 1
         self.oh_med, self.oh_p90 = OverheadModel.TABLE[(ha, load)]
+        self.oh_mu, self.oh_sigma = lognormal_params(self.oh_med,
+                                                     self.oh_p90)
 
     def _gen(self, raptor: bool) -> torch.Generator:
         gen = torch.Generator(device=self.device)
@@ -399,26 +477,26 @@ class VectorFlightSim:
 
     def run(self, trials: int = 10_000, *, raptor: bool = True
             ) -> VectorResult:
+        """``trials`` invocations of one engine: the sweep core with one
+        configuration at its own pads."""
         wl = self.wl
         if raptor:
-            t, ok, fail = _raptor_batch(
-                self._gen(True), trials=int(trials), flight=self.flight,
-                num_tasks=wl.num_tasks, num_azs=self.num_azs, dist=wl.dist,
-                rho=self.rho, mean=wl.mean_ms, offset=wl.offset_ms,
-                cv=wl.cv, fail_prob=wl.fail_prob,
-                stage_oh=wl.stage_overhead_ms, slat=self.slat,
-                oh_med=self.oh_med, oh_p90=self.oh_p90,
-                sequences=self.sequences, faults=wl.faults,
-                recovery=wl.recovery)
+            t, ok, fail = _raptor_sweep_core(
+                self._gen(True), [self.flight], [self.num_azs], [self.rho],
+                wl.mean_ms, wl.offset_ms, wl.cv, wl.stage_overhead_ms,
+                self.slat, [self.oh_mu], [self.oh_sigma], trials=int(trials),
+                flight_max=self.flight, num_tasks=wl.num_tasks,
+                azs_max=self.num_azs, dist=wl.dist, fail_prob=wl.fail_prob,
+                faults=wl.faults, policy=wl.recovery,
+                sequences=self.sequences)
         else:
-            t, ok, fail = _stock_batch(
-                self._gen(False), trials=int(trials),
-                num_tasks=wl.num_tasks, dist=wl.dist, rho=self.rho,
-                mean=wl.mean_ms, offset=wl.offset_ms, cv=wl.cv,
-                fail_prob=wl.fail_prob, oh_med=self.oh_med,
-                oh_p90=self.oh_p90, num_azs=self.num_azs,
-                faults=wl.faults, recovery=wl.recovery)
-        return VectorResult(t, ok, fail, raptor)
+            t, ok, fail = _stock_sweep_core(
+                self._gen(False), [self.rho], wl.mean_ms, wl.offset_ms,
+                wl.cv, [self.oh_mu], [self.oh_sigma], trials=int(trials),
+                num_tasks=wl.num_tasks, dist=wl.dist,
+                fail_prob=wl.fail_prob, num_azs=self.num_azs,
+                faults=wl.faults, policy=wl.recovery)
+        return VectorResult(t[0], ok[0], fail[0], raptor)
 
     def run_pair(self, trials: int = 10_000) -> Dict[str, dict]:
         """Stock + Raptor summaries and their mean ratio (Table-7 shape).

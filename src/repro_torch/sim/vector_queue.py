@@ -26,6 +26,12 @@ materialized by the same bounded fixed point as staged readies.
 Both replays run on the blocked event-replay substrate
 (:mod:`repro_torch.sim.scan_core`); ``block=1`` is the sequential oracle.
 The trial axis is a leading batch dimension: one call books every trial.
+Configuration sweeps (:func:`load_sweep`, :func:`rate_sweep`, through
+:mod:`repro_torch.sim.sweeps`) give the trial bodies one arrival rate and
+one Table-6 overhead lognormal per configuration: the configurations read
+the same draws and stack as more rows of the one batch, so a sweep is its
+per-configuration runs, bit for bit, and one kernel launch books
+``configs x trials`` rows.
 Draws come from an explicit ``torch.Generator`` seeded from ``seed``, so
 the port matches the reference by distribution; fed the reference's
 drawn events and fault tables (:mod:`repro_torch.sim.interop`), its
@@ -47,7 +53,6 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.analytics import summarize_batch
 from repro_torch.core.workflow import (WorkflowGraph, compile_spec, fanout,
                                        task)
 from repro_torch.sim.cluster import OverheadModel, lognormal_params
@@ -59,7 +64,8 @@ from repro_torch.sim.policies import (NO_RECOVERY, RecoveryPolicy,
 from repro_torch.sim.scan_core import (blocked_bestfit_booking,
                                        blocked_event_replay,
                                        stock_booking_fins)
-from repro_torch.sim.vector import unit_draws
+from repro_torch.sim.vector import (_cfg_col, host_summary, summary_row,
+                                    unit_draws)
 from repro_torch.sim.workloads import (ETL_QUARANTINE_MS, KEYGEN_CV,
                                        KEYGEN_OFFSET_MS, THUMB_CV,
                                        THUMB_DOWNLOAD_MS, WC_STORAGE_HOP_MS,
@@ -462,22 +468,73 @@ def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def _config_count(*xs) -> int:
+    """How many configurations the per-config knobs carry: each knob is a
+    sequence with one value per configuration, all of one length."""
+    if any(np.ndim(x) != 1 for x in xs):
+        raise ValueError("per-config knobs must be 1-D sequences")
+    ns = {len(x) for x in xs}
+    if len(ns) > 1:
+        raise ValueError(f"per-config knobs disagree in length: {sorted(ns)}")
+    return ns.pop()
+
+
+def _arrival_times(gaps, rate_hz):
+    """Absolute arrival times ``(C, T, jobs)`` from unit gaps ``(T, jobs)``,
+    one rate per configuration.  Each scale is the float64 quotient
+    ``1000 / rate_hz`` rounded to float32 once (a rate rounded first would
+    move arrivals by an ulp), and each configuration takes its own
+    cumulative sum over the ``(T, jobs)`` rows a one-configuration run
+    sums: on CUDA the scan's rounding depends on how many rows one call
+    holds."""
+    return torch.stack([torch.cumsum(gaps * _f32(1000.0 / float(r),
+                                                 gaps.device), dim=-1)
+                        for r in rate_hz])
+
+
+def _stack_rows(x, C: int):
+    """A per-trial ``(T, ...)`` tensor repeated for ``C`` configurations
+    as ``(C*T, ...)`` rows."""
+    return x.expand((C,) + tuple(x.shape)).reshape(
+        (C * x.shape[0],) + tuple(x.shape[1:]))
+
+
+def _unstack(out, C: int, T: int):
+    """Trial outputs of ``C*T`` rows (nested tuples) as ``(C, T, ...)``."""
+    if isinstance(out, tuple):
+        return tuple(_unstack(x, C, T) for x in out)
+    return out.reshape((C, T) + tuple(out.shape[1:]))
+
+
 def _raptor_job_draws(gen, arrivals, *, W, A, F, K, seq, dist, cv, rho,
                       means, offset, stage_oh, oh_mu, oh_sigma, fail_prob,
                       fault_mode=False, R=0):
     """Per-job event tensors for ``(T, jobs)`` arrivals — the event tuple
     :func:`_raptor_job_body` books, without the trial-level fault tables.
     Shared by the whole-trace trial and the streaming engine's
-    per-microbatch draw."""
+    per-microbatch draw.
+
+    The arrivals are configuration-stacked, ``(C, T, jobs)``, with
+    ``oh_mu`` and ``oh_sigma`` holding one value per configuration: every
+    configuration reads the one draw per (trial, job), and the events come
+    back as ``C*T`` rows."""
     dev = arrivals.device
-    lead = tuple(arrivals.shape)
+    C = arrivals.shape[0]
+    lead = tuple(arrivals.shape[1:])
+
+    def rows(x, per_config=False):
+        """``(T, ...)``, or ``(C, T, ...)`` when ``per_config``, as
+        ``(C*T, ...)`` rows."""
+        if per_config:
+            return x.reshape((C * x.shape[1],) + tuple(x.shape[2:]))
+        return _stack_rows(x, C)
     rho, offset, stage_oh = (_f32(x, dev) for x in (rho, offset, stage_oh))
     means = _f32(means, dev)
     # one draw for the AZ-shared S block and the private X block
     sx = unit_draws(gen, lead + (A + F, K), dist, cv)
     s, x = sx[..., :A, :], sx[..., A:, :]
-    oh = torch.exp(_f32(oh_mu, dev) + _f32(oh_sigma, dev) * torch.randn(
-        lead + (F + 1,), generator=gen, device=dev))
+    oh = torch.exp(_cfg_col(oh_mu, 3, dev) + _cfg_col(oh_sigma, 3, dev)
+                   * torch.randn(lead + (F + 1,), generator=gen, device=dev))
     # member 0 pays the arrival overhead; later members a second
     # control-plane hop (the fork's recursive invocation, §3.3.2)
     t_oh = oh[..., :1] + torch.where(torch.arange(F, device=dev) == 0, 0.0,
@@ -490,17 +547,19 @@ def _raptor_job_draws(gen, arrivals, *, W, A, F, K, seq, dist, cv, rho,
     z_case = torch.gather(z_case, -1, seq.expand(lead + (A, F, K)))
     # placement tie-break randomness: one priority per (job, worker)
     prio = torch.rand(lead + (W,), generator=gen, device=dev)
+    head = (rows(arrivals, True), rows(z_case))
+    t_oh, prio = rows(t_oh, True), rows(prio)
     if fault_mode:
         # fault mode folds base errors into the per-attempt chain
         # uniforms, by sequence position — no precomputed outcome bitmap
         u_err = torch.rand(lead + (F, K, R + 1), generator=gen, device=dev)
         u_jit = torch.rand(lead + (F, K, R), generator=gen, device=dev)
-        return (arrivals, z_case, t_oh, prio, u_err, u_jit)
+        return head + (t_oh, prio, rows(u_err), rows(u_jit))
     if fail_prob == 0.0:
-        return (arrivals, z_case, t_oh, prio)
+        return head + (t_oh, prio)
     fail = torch.rand(lead + (F, K), generator=gen, device=dev) < fail_prob
     fail_seq = torch.gather(fail, -1, seq.expand(lead + (F, K)))
-    return (arrivals, z_case, fail_seq, t_oh, prio)
+    return head + (rows(fail_seq), t_oh, prio)
 
 
 def _raptor_race_budget(block: int, F: int, K: int, anyfail: bool,
@@ -675,8 +734,9 @@ def _raptor_stream_fns(W: int, A: int, F: int, graph: WorkflowGraph,
       tables (:func:`_raptor_env`), drawn once per stream; ``None``
       outside fault mode.
     * ``draw_events(gen, arrivals, rho, means, offset, cv, stage_oh,
-      oh_mu, oh_sigma) -> events`` — the per-job event tensors for
-      ``(T, mb)`` sorted absolute-ms arrivals.  Padded (``inf``) arrivals
+      oh_mu, oh_sigma) -> events`` — the per-job event tensors, ``C*T``
+      rows, for ``(C, T, mb)`` sorted absolute-ms arrivals and one
+      ``oh_mu``/``oh_sigma`` per configuration.  Padded (``inf``) arrivals
       are dead events: they book nothing and leave the W-state bitwise
       untouched.
     * ``step(wf, events, env, slat) -> (wf', outs)`` — book ``(T, mb)``
@@ -736,7 +796,11 @@ def _raptor_trial_fn(jobs: int, W: int, A: int, F: int,
     tables (fault mode), and one :func:`blocked_event_replay` of the
     shared booking body from an idle pool.  ``block=0`` is the adaptive
     log-depth split ``ceil(jobs/3)``.  ``trace=True`` also returns
-    ``(arrival, dispatch, worker, release)`` per (job, member)."""
+    ``(arrival, dispatch, worker, release)`` per (job, member).
+
+    ``rate_hz``, ``oh_mu`` and ``oh_sigma`` hold one value per
+    configuration: the trial books every configuration on the same draws
+    as more rows of one batch and returns ``(C, trials, ...)`` tensors."""
     draw_env, draw_events, step = _raptor_stream_fns(
         W, A, F, graph, dist, fail_prob, faults, policy, block, resolver,
         scan, summary_backend, trace, device)
@@ -744,18 +808,21 @@ def _raptor_trial_fn(jobs: int, W: int, A: int, F: int,
     def trial(gen, trials, rate_hz, rho, means, offset, cv, stage_oh, slat,
               oh_mu, oh_sigma):
         dev = gen.device
+        C = _config_count(rate_hz, oh_mu, oh_sigma)
         gaps = torch.empty((trials, jobs), device=dev).exponential_(
             generator=gen)
-        arrivals = torch.cumsum(gaps * _f32(1000.0 / rate_hz, dev), dim=-1)
+        arrivals = _arrival_times(gaps, rate_hz)
         events = draw_events(gen, arrivals, rho, means, offset, cv,
                              stage_oh, oh_mu, oh_sigma)
         env = draw_env(gen, trials)
-        wf0 = torch.zeros((trials, W), device=dev)
+        if env is not None:
+            env = tuple(_stack_rows(x, C) for x in env)
+        wf0 = torch.zeros((C * trials, W), device=dev)
         _, outs = step(wf0, events, env, slat)
         if trace:
             resp, ok, t_disp, widx, t_rel = outs
-            return resp, ok, (arrivals, t_disp, widx, t_rel)
-        return outs
+            outs = (resp, ok, (events[0], t_disp, widx, t_rel))
+        return _unstack(outs, C, trials)
 
     return trial
 
@@ -798,9 +865,10 @@ def _stock_trial_fn(jobs: int, W: int, A: int, graph: WorkflowGraph,
     attempt axis, the per-attempt ``fail`` outcomes and the four tables.
 
     Returns ``trial(gen, trials, rate_hz, rho, means, extras, offset, cv,
-    stage_oh, oh_mu, oh_sigma)``; ``trial.replay(draws, stage_oh)`` books
-    given draws — ``(arrivals, z, ok, oh)``, or in fault mode
-    ``(arrivals, z, oh, env, u_err, u_jit)`` — which is how the tests
+    stage_oh, oh_mu, oh_sigma)`` (``rate_hz``/``oh_mu``/``oh_sigma`` per
+    configuration as for the raptor trial); ``trial.replay(draws,
+    stage_oh)`` books given draws — ``(arrivals, z, ok, oh)``, or in fault
+    mode ``(arrivals, z, oh, env, u_err, u_jit)`` — which is how the tests
     feed it the reference's.
     """
     device = str(torch.device(device))
@@ -985,9 +1053,10 @@ def _stock_trial_fn(jobs: int, W: int, A: int, graph: WorkflowGraph,
               stage_oh, oh_mu, oh_sigma):
         dev = gen.device
         T = trials
+        C = _config_count(rate_hz, oh_mu, oh_sigma)
         rho_t = _f32(rho, dev)
         gaps = torch.empty((T, jobs), device=dev).exponential_(generator=gen)
-        arrivals = torch.cumsum(gaps * _f32(1000.0 / rate_hz, dev), dim=-1)
+        arrivals = _arrival_times(gaps, rate_hz)
         # each task's time is the rho-mixture of two i.i.d. draws
         zz = unit_draws(gen, (T, jobs, 4 if has_extras else 2, K), dist, cv)
         z = (rho_t * zz[..., 0, :] + (1 - rho_t) * zz[..., 1, :]) \
@@ -1002,16 +1071,28 @@ def _stock_trial_fn(jobs: int, W: int, A: int, graph: WorkflowGraph,
         else:
             ok = ~torch.any(torch.rand((T, jobs, K), generator=gen,
                                        device=dev) < fail_prob, dim=-1)
-        oh = torch.exp(_f32(oh_mu, dev) + _f32(oh_sigma, dev) * torch.randn(
-            (T, jobs, K + 1), generator=gen, device=dev))
+        oh = torch.exp(_cfg_col(oh_mu, 3, dev) + _cfg_col(oh_sigma, 3, dev)
+                       * torch.randn((T, jobs, K + 1), generator=gen,
+                                     device=dev))
+        # configurations stack as row blocks: per-config arrivals and
+        # overheads, the per-trial draws repeated
+        arrivals = arrivals.reshape(-1, jobs)
+        oh = oh.reshape(-1, jobs, K + 1)
+        z = _stack_rows(z, C)
         if not fault_mode:
-            return replay((arrivals, z, ok, oh), stage_oh)
-        # the exogenous fault environment (policy-only mode rides the
-        # inactive sentinels) and the per-attempt policy uniforms
-        env = _raptor_env(fp, gen, A, W, (T,))
-        u_err = torch.rand((T, jobs, K, A_att), generator=gen, device=dev)
-        u_jit = torch.rand((T, jobs, K, R), generator=gen, device=dev)
-        return replay((arrivals, z, oh, env, u_err, u_jit), stage_oh)
+            out = replay((arrivals, z, _stack_rows(ok, C), oh), stage_oh)
+        else:
+            # the exogenous fault environment (policy-only mode rides the
+            # inactive sentinels) and the per-attempt policy uniforms
+            env = _raptor_env(fp, gen, A, W, (T,))
+            u_err = torch.rand((T, jobs, K, A_att), generator=gen,
+                               device=dev)
+            u_jit = torch.rand((T, jobs, K, R), generator=gen, device=dev)
+            out = replay((arrivals, z, oh,
+                          tuple(_stack_rows(x, C) for x in env),
+                          _stack_rows(u_err, C), _stack_rows(u_jit, C)),
+                         stage_oh)
+        return _unstack(out, C, T)
 
     trial.replay = replay
     return trial
@@ -1038,17 +1119,7 @@ class QueueResult:
         """Delay summary conditioned on SUCCESS (a failed job's "response"
         is its failure-detection time), with the failure accounting
         alongside: ``n`` counts the successful jobs summarized."""
-        ok = self.ok.reshape(-1)
-        resp = self.response_ms.reshape(-1)[ok]
-        if resp.numel():
-            s = {k: (int(v) if k == "n" else float(v))
-                 for k, v in summarize_batch(resp).items()}
-        else:
-            nan = float("nan")
-            s = dict(mean=nan, median=nan, p90=nan, p99=nan, scv=nan, n=0)
-        s["fail_rate"] = self.fail_rate()
-        s["n_failed"] = int(ok.numel() - int(ok.sum()))
-        return s
+        return host_summary(summary_row(self.response_ms, self.ok).cpu())
 
 
 class QueueFlightSim:
@@ -1173,15 +1244,18 @@ class QueueFlightSim:
             self.summary_backend, trace, self.device)
 
     def _raptor_args(self):
+        """The raptor trial's arguments: this sim as one configuration."""
         wl = self.wl
-        return (self.rate_hz, self.rho, wl.task_means, wl.offset_ms, wl.cv,
-                wl.raptor_stage_ms, self.slat, self.oh_mu, self.oh_sigma)
+        return ([self.rate_hz], self.rho, wl.task_means, wl.offset_ms,
+                wl.cv, wl.raptor_stage_ms, self.slat, [self.oh_mu],
+                [self.oh_sigma])
 
     def _stock_args(self):
+        """The stock trial's arguments: this sim as one configuration."""
         wl = self.wl
-        return (self.rate_hz, self.rho, self._smeans, self._sextras,
-                wl.offset_ms, wl.cv, wl.stock_stage_ms, self.oh_mu,
-                self.oh_sigma)
+        return ([self.rate_hz], self.rho, self._smeans, self._sextras,
+                wl.offset_ms, wl.cv, wl.stock_stage_ms, [self.oh_mu],
+                [self.oh_sigma])
 
     def _gen(self, raptor: bool) -> torch.Generator:
         gen = torch.Generator(device=self.device)
@@ -1196,7 +1270,7 @@ class QueueFlightSim:
         else:
             resp, ok = self._stock_fn(jobs)(self._gen(False), int(trials),
                                             *self._stock_args())
-        return QueueResult(resp, ok, raptor)
+        return QueueResult(resp[0], ok[0], raptor)
 
     def run_pair(self, jobs: int = 1024, trials: int = 16) -> Dict[str, dict]:
         stock = self.run(jobs, trials, raptor=False)
@@ -1220,7 +1294,7 @@ class QueueFlightSim:
         so the traced replay IS the measured one.
         """
         def host(x):
-            return x.cpu().numpy()
+            return x[0].cpu().numpy()
         if raptor:
             resp, ok, (arr, disp, widx, rel) = self._raptor_fn(
                 jobs, trace=True)(self._gen(True), int(trials),
@@ -1244,3 +1318,41 @@ class QueueFlightSim:
                 "arrival": host(arr), "ready": host(ready),
                 "start": host(start), "fin": host(fin),
                 "worker": host(wkr)}
+
+
+# --------------------------------------------------------------------------
+# batched config sweeps: thin plans over repro_torch.sim.sweeps
+# --------------------------------------------------------------------------
+# Arrival rate and the Table-6 overhead lognormal vary per configuration,
+# so the configuration axis is pure batching: one booking per engine for
+# the whole grid, bitwise each configuration's own run_pair.
+
+def load_sweep(wl: QueueWorkload, *, num_workers: int = 15, num_azs: int = 3,
+               loads=("low", "medium", "high"), rho: float = 0.95,
+               jobs: int = 1024, trials: int = 16, seed: int = 0,
+               devices=None, device=None, **sim_kw) -> Dict[str, dict]:
+    """All Table-6 load points of one deployment, one batch per engine.
+    ``sim_kw`` (``block``, ``booking_backend``, ...) go to every
+    :class:`QueueFlightSim` of the plan."""
+    from repro_torch.sim.sweeps import queue_pair_plan
+    sims = [QueueFlightSim(wl, num_workers=num_workers, num_azs=num_azs,
+                           load=load, rho=rho, seed=seed, device=device,
+                           **sim_kw) for load in loads]
+    return dict(zip(loads,
+                    queue_pair_plan(sims, jobs, trials).run(devices=devices)))
+
+
+def rate_sweep(wl: QueueWorkload, rates_hz, *, loads=None,
+               num_workers: int = 15, num_azs: int = 3, rho: float = 0.95,
+               jobs: int = 1024, trials: int = 16, seed: int = 0,
+               devices=None, device=None, **sim_kw):
+    """Arbitrary arrival-rate grid (continuous load axis) on one
+    deployment; ``loads`` optionally names the Table-6 overhead regime per
+    point (defaults to "medium").  Returns one pair dict per rate."""
+    from repro_torch.sim.sweeps import queue_pair_plan
+    loads = list(loads) if loads is not None else ["medium"] * len(rates_hz)
+    sims = [QueueFlightSim(wl, num_workers=num_workers, num_azs=num_azs,
+                           load=load, rho=rho, arrival_rate_hz=float(r),
+                           seed=seed, device=device, **sim_kw)
+            for r, load in zip(rates_hz, loads)]
+    return queue_pair_plan(sims, jobs, trials).run(devices=devices)

@@ -66,6 +66,33 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                     "--reduced"])
 
 
+def test_sweeps_and_experiments_raise_without_cuda(monkeypatch):
+    """The sweeps and the vector experiments have no host
+    fallback: without a card and without ``device`` they raise."""
+    from repro_torch.sim import experiments as X
+    from repro_torch.sim.sweeps import queue_pair_plan
+    from repro_torch.sim.vector import keygen_vector, sweep_pairs
+    from repro_torch.sim.vector_queue import (QueueFlightSim, keygen_queue,
+                                              load_sweep, rate_sweep)
+    # a plan built while a card was visible re-checks when it runs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    plan = queue_pair_plan([QueueFlightSim(keygen_queue())], 16, 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        plan.run,
+        lambda: sweep_pairs(keygen_vector(), [dict(flight=2, num_azs=3)]),
+        lambda: load_sweep(keygen_queue()),
+        lambda: rate_sweep(keygen_queue(), [1.0, 2.0]),
+        X.fig6_scale_effect, X.fig7_other_workloads, X.workflow_bank,
+        X.load_sweep_util, X.sweep_scale, X.fault_sweep,
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # the scalar oracle never needed a card
+    assert set(X.table6_overhead(n=100)) >= {"three_az/low", "one_az/high"}
+
+
 def test_launcher_runs_on_cpu_when_asked(capsys):
     from repro_torch.launch import serve
     assert serve.main(["--mode", "scheduler", "--device", "cpu", "--jobs",
