@@ -16,7 +16,12 @@ layers, d_model 1536, 24 q / 8 kv heads of 64, 40 experts top-8 of ff 512,
 vocab 49,155; prompts of 4,096); the hybrid path, zamba2-1.2b at full width
 (38 Mamba2 layers, d_model 2048, 64 SSM heads of 64, state 64, and a shared
 attention+MLP block of 32 heads of 64 and ff 8,192 after every 6th layer;
-prompts of 4,096).
+prompts of 4,096); the VLM path, qwen2-vl-2b at full width (28 layers,
+d_model 1536, 12 q / 2 kv heads of 128, M-RoPE sections 16/24/24, vocab
+151,936; prompts of 4,096 embeddings); the encoder-decoder path,
+seamless-m4t-medium at full width (12 encoder and 12 decoder layers,
+d_model 1024, 16 / 16 heads of 64, vocab 256,206; 4,096 decoder
+embeddings over 4,096 encoder frames).
 
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build all six kernels (one nvcc per source, in parallel), timed, with
@@ -44,11 +49,13 @@ prompts of 4,096).
    cap) beside SDPA;
 8. ``decode_attention`` against its plain version at the decode's shapes
    (bf16, B=2, C=4648 and 4096, the model's ring positions and random
-   holes; granite-moe-3b-a800m's and zamba2-1.2b's decode shapes) within
+   holes; granite-moe-3b-a800m's, zamba2-1.2b's, qwen2-vl-2b's and
+   seamless-m4t-medium's cross decode shapes) within
    the bf16 bar; timed with ``launch/bench_kernels.py`` where the model
    finds its caches cold (distinct caches that outgrow the L2, in turn):
-   device time by CUDA-graph replay, at cap 50 and 0, at the three
-   models' shapes, beside SDPA with a mask;
+   device time by CUDA-graph replay, at cap 50 and 0, at the five
+   models' shapes (seamless-m4t-medium's cross cache among them), beside
+   SDPA with a mask;
 9. LM serve, gemma2-9b: ``ServingEngine.serve`` and one
    ``generate_flight`` (tokens equal to ``generate``'s) on the card, with
    exactly 42 flash_attention launches per prefill and 42 decode_attention
@@ -117,10 +124,31 @@ prompts of 4,096).
    summary route) at their defaults, and ``fault_sweep()`` again on the
    default summary route, every row bitwise equal; every wall and each
    kernel's launches;
-18. one JSON line listing each kernel (launches on its path, error
+18. LM serve, qwen2-vl-2b, as phase 12 on ``demo_requests``' embedding
+   prompts: exactly 28 flash_attention launches per prefill and 28
+   decode_attention launches per decode step; the flight; the wiring run
+   on M-RoPE ids with distinct streams (1,024 text positions, then a
+   48 x 64 patch grid: Qwen2-VL's layout of an image after text), every
+   kernel call within the bf16 bar of its plain version, the bf16 logits
+   no further (rms) from plain attention's than bf16 from float32, the
+   float32 logits within 1e-3 x max |logit|; flash_attention at its
+   prefill shape (12 / 2 heads of 128, S=4,096) timed beside SDPA;
+19. LM serve, seamless-m4t-medium, likewise: exactly 36 flash_attention
+   launches per prefill (12 encoder, 12 causal self, 12 cross) and 24
+   decode_attention launches per decode step (12 self, 12 cross over
+   every encoder frame); the wiring run on a decoder prompt of 1,024 over
+   4,096 encoder frames, so the cross attention runs Sq != Sk, with
+   phase 18's per-call and float32 bars (its bf16 rms is reported, not
+   held: here the kernels' and the plain versions' bf16 logits lie as
+   far apart as bf16 lies from float32); the logits move when the
+   encoder's input does; flash_attention at the
+   cross shape (16 / 16 heads of 64, Sq 1,024, Sk 4,096) beside SDPA
+   (decode_attention at both paths' decode shapes is timed in phase 8);
+20. one JSON line listing each kernel (launches on its path, error
    against the plain version, times, bound, library time; for
    ``maxplus_scan`` also its launches on the fault paths; for both
-   scheduler kernels their launches on the sweep path).  Every
+   scheduler kernels their launches on the sweep path; for the two
+   attention kernels their launches on every LM path).  Every
    kernel's ``ms`` and ``library_ms`` is the device's time: a CUDA graph
    of the calls replayed between CUDA events (``graph_ms``), inputs cold
    (copies that outgrow the L2, in turn) for the LM kernels, and for the
@@ -128,7 +156,7 @@ prompts of 4,096).
    (``maxplus_scan``, ``decode_attention``, ``ssd_scan``) is the pace of
    an event-timed loop of calls, which the host sets for short kernels,
    and ``plain_ms`` is timed so too;
-19. the last line: ``{"ok": true, "device": {...}}``.
+21. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.  A copy
@@ -166,8 +194,22 @@ WIRING_STEPS = 4
 MOE_ARCH, HYBRID_ARCH = "granite-moe-3b-a800m", "zamba2-1.2b"
 PROMPT2 = 4096
 MAX_LEN2 = PROMPT2 + DECODE_STEPS + 8
+# the VLM and encoder-decoder serving paths, traffic as the MoE path's;
+# the VLM's wiring prompt: VLM_TEXT text positions, then a rows x cols
+# patch grid; the encoder-decoder's: a decoder prompt of
+# ENCDEC_WIRING_PROMPT over PROMPT2 encoder frames
+VLM_ARCH, ENCDEC_ARCH = "qwen2-vl-2b", "seamless-m4t-medium"
+VLM_TEXT, VLM_GRID = 1024, (48, 64)
+ENCDEC_WIRING_PROMPT = 1024
 # ssd_scan against plain: the reference kernel test's bar (atol, rtol)
 SSD_TOL = (2e-4, 2e-4, math.inf)
+# an LM path's wiring run in bf16: the kernels' logits lie no further (rms)
+# from the plain versions' float32 logits than RMS_K x the plain versions'
+# bf16 logits do.  The kernels round as the plain versions do, within
+# their bars, so the two spreads are one bf16 rounding spread: they read
+# 0.987-1.026 x on the H100 (phases 12, 13, 18 and 19); a kernel error
+# independent of that spread fails the bar from 0.57 x its size on
+RMS_K = 1.15
 # the fault path: a correlated AZ brownout process (fault_sweep's, with
 # degraded errors) plus worker crashes, and a timeout / jittered retry /
 # hedge policy; table widths cover the 1,800 s stream's replay (~2,000 s
@@ -670,6 +712,356 @@ def experiments_phase(dev, card) -> dict:
                 theory_ratio=an.response_ratio_paper())
 
 
+def kernel_entries() -> dict:
+    """Each LM kernel's (module whose name the model calls, that name,
+    wrapper, plain version, bar against it; None: ``TOL``)."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_plain, gqa_decode)
+    from repro_torch.kernels.flash_attention.ops import attention_plain, mha
+    from repro_torch.kernels.moe_gmm.ops import expert_matmul_plain, gmm
+    from repro_torch.kernels.ssd_scan.ops import ssd, ssd_plain
+    from repro_torch.models import layers, mamba2, moe
+    from repro_torch.models import transformer as tfm
+    return {"flash_attention": (layers, "mha", mha, attention_plain, None),
+            "decode_attention": (tfm, "gqa_decode", gqa_decode,
+                                 decode_attention_plain, None),
+            "expert_matmul": (moe, "gmm", gmm, expert_matmul_plain, None),
+            "ssd_scan": (mamba2, "ssd", ssd, ssd_plain, SSD_TOL)}
+
+
+def lm_path(dev, card, phase, cfg_, per_prefill, per_step, *,
+            wiring_batch=None, rms_bar=False):
+    """Serve ``cfg_`` at full width (3 batches of 2 ``demo_requests``
+    prompts of PROMPT2, DECODE_STEPS greedy steps each), a flight of 2,
+    and the wiring run; ``per_prefill`` and ``per_step`` are the launches
+    each kernel of the path must make.  The wiring run (a prefill of
+    ``wiring_batch``, by default the first served batch, and WIRING_STEPS
+    teacher-forced steps) holds every kernel call to its plain version,
+    the bf16 logits within RMS_K of the bf16 rounding spread from the
+    plain versions' float32 logits, and with the weights in float32 the
+    logits within 1e-3 x max |logit| of the plain versions'; with
+    ``rms_bar`` the bf16 logits also lie no further (rms) from the plain
+    versions' than bf16 from float32.
+    Returns the results and the weights, in float32 now."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import (ServeConfig, ServingEngine,
+                                            demo_requests)
+    from repro_torch.serving.step import greedy_sample
+    entries = kernel_entries()
+    walls = {}
+    t0 = time.perf_counter()
+    params_ = tfm.init_params(cfg_, 0, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params_.parameters())
+    say(f"phase {phase} {cfg_.name}: {n_par:,} parameters "
+        f"({torch.cuda.memory_allocated() / 1e9:.1f} GB on the card) "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    batches_ = [demo_requests(cfg_, LM_BATCH, PROMPT2, seed=i,
+                              device=dev) for i in range(LM_BATCHES)]
+    eng_ = ServingEngine(cfg_, params_, ServeConfig(
+        max_len=MAX_LEN2, decode_steps=DECODE_STEPS), device=dev)
+    wrappers = {name: entries[name][2] for name in per_prefill}
+    for fn in wrappers.values():
+        fn.launches = 0
+    stats_ = eng_.serve(batches_)
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    n_pre, n_step = 2 + LM_BATCHES, 2 + LM_BATCHES * DECODE_STEPS
+    want_ = {name: per_prefill[name] * n_pre + per_step[name] * n_step
+             for name in per_prefill}
+    if got != want_:
+        raise AssertionError(f"{cfg_.name} serve launched {got}, "
+                             f"expected {want_}")
+    walls["serve"] = time.perf_counter() - t0
+    summ_ = stats_.summary()
+    say(f"phase {phase} serve: {summ_['requests']} requests (B="
+        f"{LM_BATCH}, prompt {PROMPT2}, {DECODE_STEPS} decode steps, "
+        f"max_len {MAX_LEN2}): prefill {summ_['prefill_s'] * 1e3:.1f} ms,"
+        f" decode {summ_['decode_step_s'] * 1e3:.3f} ms/step, "
+        f"{LM_BATCH / summ_['decode_step_s']:.1f} decode tokens/s, "
+        f"request p50 {summ_['p50_s'] * 1e3:.1f} ms, p99 "
+        f"{summ_['p99_s'] * 1e3:.1f} ms; first call "
+        f"{summ_['cold_s']:.2f} s, warm {summ_['warm_s']:.2f} s; "
+        f"launches {got} ({n_pre} prefills, {n_step} decode steps) "
+        f"[{card}]")
+    t0 = time.perf_counter()
+    fl_eng = ServingEngine(cfg_, params_, ServeConfig(
+        max_len=MAX_LEN2, decode_steps=DECODE_STEPS, flight_size=2),
+        device=dev)
+    fl_eng.warmup(batches_[0])
+    flown_ = fl_eng.generate_flight(batches_[0])
+    ref_ = eng_.generate(batches_[0])
+    if flown_.tokens.shape != (LM_BATCH, DECODE_STEPS) or not (
+            flown_.tokens == ref_.tokens).all():
+        raise AssertionError(f"{cfg_.name}: the flight's tokens differ "
+                             f"from generate's")
+    walls["flight"] = time.perf_counter() - t0
+    say(f"phase {phase} flight of 2: {flown_.latency_s * 1e3:.1f} ms, "
+        f"tokens equal generate's ({ref_.latency_s * 1e3:.1f} ms) "
+        f"[{card}]")
+
+    # the wiring: every kernel call of a prefill and WIRING_STEPS
+    # teacher-forced steps held to its plain version on its inputs
+    t0 = time.perf_counter()
+    wiring_batch = batches_[0] if wiring_batch is None else wiring_batch
+    forced_ = torch.as_tensor(ref_.tokens[:, :WIRING_STEPS], device=dev)
+    calls = {name: [0, 0.0, 0.0] for name in per_prefill}
+
+    def shadowed(name):
+        _, _, kernel, plain, bar = entries[name]
+
+        def run(*args, **kw):
+            out = kernel(*args, **kw)
+            err, share = close(out, plain(*args, **kw),
+                               f"{cfg_.name} {name}", bar)
+            rec = calls[name]
+            rec[:] = rec[0] + 1, max(rec[1], err), max(rec[2], share)
+            return out
+        return run
+
+    def logits_of(swap, cfg_run=cfg_):
+        dt = getattr(torch, cfg_run.dtype)
+        batch = {k: (t.to(dt) if t.is_floating_point() else t)
+                 for k, t in wiring_batch.items()}
+        with contextlib.ExitStack() as swaps:
+            for name, fn in swap.items():
+                mod, attr = entries[name][:2]
+                swaps.enter_context(mock.patch.object(mod, attr, fn))
+            logits, cache = tfm.prefill(params_, cfg_run, batch, MAX_LEN2)
+            outs = [logits.float()]
+            for i in range(WIRING_STEPS):
+                logits, cache = tfm.decode_step(params_, cfg_run, cache,
+                                                forced_[:, i:i + 1])
+                outs.append(logits.float())
+            del cache
+        out = torch.stack(outs)
+        if out.shape != (WIRING_STEPS + 1, LM_BATCH, cfg_.vocab_size) \
+                or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{cfg_.name}: logits {out.shape} are "
+                                 f"not finite or of the wrong shape")
+        return out
+
+    kern_ = logits_of({name: shadowed(name) for name in per_prefill})
+    want_calls = {name: per_prefill[name] + WIRING_STEPS * per_step[name]
+                  for name in per_prefill}
+    if {name: rec[0] for name, rec in calls.items()} != want_calls:
+        raise AssertionError(f"{cfg_.name}: the wiring run made {calls} "
+                             f"kernel calls, expected {want_calls}")
+    plain_ = logits_of({name: entries[name][3] for name in per_prefill})
+    diff = (kern_ - plain_).abs()
+    wiring_max = float(diff.max())
+    wiring_rms = float(diff.square().mean().sqrt())
+    agree = float((greedy_sample(kern_) == greedy_sample(plain_))
+                  .float().mean())
+    say(f"phase {phase} wiring, every kernel call against its plain "
+        f"version on the model's activations: "
+        + "; ".join(f"{name} {rec[0]} calls, max abs err {rec[1]:.4g}, "
+                    f"{rec[2]:.3f} of its bar at worst"
+                    for name, rec in calls.items())
+        + f"; logits kernels vs plain: max {wiring_max:.4g}, rms "
+        f"{wiring_rms:.4g}, greedy tokens agree {agree:.3f} [{card}]")
+    del diff
+    # the same weights in float32: there the kernels agree with their
+    # plain versions to float32 rounding, with no bf16 rounding to
+    # flip a router's choice, so the logits are held as gemma2-9b's
+    cfg32_ = dataclasses.replace(cfg_, dtype="float32")
+    for w_ in params_.parameters():
+        w_.data = w_.data.float()
+    kern32_ = logits_of({}, cfg32_)
+    plain32_ = logits_of({name: entries[name][3] for name in per_prefill},
+                         cfg32_)
+    err32_ = float((kern32_ - plain32_).abs().max())
+    top32_ = float(plain32_.abs().max())
+    agree32_ = float((greedy_sample(kern32_) == greedy_sample(plain32_))
+                     .float().mean())
+    noise_rms = float((plain_ - plain32_).square().mean().sqrt())
+    kern_f32_rms = float((kern_ - plain32_).square().mean().sqrt())
+    say(f"phase {phase} wiring float32 (prefill + {WIRING_STEPS} "
+        f"teacher-forced steps, kernels vs plain versions): max "
+        f"|dlogit| {err32_:.4g} against 1e-3 x max |logit| = "
+        f"{1e-3 * top32_:.4g}, greedy tokens agree {agree32_:.3f}; bf16 "
+        f"vs float32, both plain: rms {noise_rms:.4g}; the kernels' bf16 "
+        f"vs float32 plain: rms {kern_f32_rms:.4g} (kernels vs plain in "
+        f"bf16: rms {wiring_rms:.4g}) [{card}]")
+    if not err32_ <= 1e-3 * top32_:
+        raise AssertionError(f"{cfg_.name} float32: kernels and plain "
+                             f"versions disagree: max |dlogit| {err32_} "
+                             f"> {1e-3 * top32_}")
+    if not kern_f32_rms <= RMS_K * noise_rms:
+        raise AssertionError(
+            f"{cfg_.name} bf16: the kernels' logits lie further from float32 "
+            f"(rms {kern_f32_rms}) than {RMS_K} x the plain versions' bf16 "
+            f"logits do (rms {noise_rms})")
+    if rms_bar and not wiring_rms <= noise_rms:
+        raise AssertionError(
+            f"{cfg_.name} bf16: the kernels move the logits further from "
+            f"the plain versions' (rms {wiring_rms}) than bf16 rounding "
+            f"moves them from float32 (rms {noise_rms})")
+    walls["wiring"] = time.perf_counter() - t0
+    del eng_, fl_eng, kern_, kern32_, plain32_, plain_
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(summ_, decode_tokens_per_s=LM_BATCH
+                / summ_["decode_step_s"], launches=got, params=n_par,
+                flight_s=flown_.latency_s, wiring_calls=calls,
+                wiring_logits_max_abs=wiring_max,
+                wiring_logits_rms=wiring_rms,
+                bf16_vs_f32_rms=noise_rms,
+                kernels_bf16_vs_f32_rms=kern_f32_rms,
+                greedy_agreement=agree, wiring_f32_max_abs=err32_,
+                wiring_f32_bar=1e-3 * top32_,
+                greedy_agreement_f32=agree32_, walls_s=walls), params_
+
+
+def flash_row(dev, name, hq, hkv, sq, sk, d, causal, scale) -> dict:
+    """``flash_attention`` at one of a model's shapes (B = LM_BATCH, bf16,
+    no cap or window): held to its plain version within the bf16 bar, its
+    device time (CUDA graph replay, inputs cold) beside SDPA's, the plain
+    version's pace and the bound (the larger of the operations at the
+    bf16 tensor-core rate and the bytes: q, k, v read, the output
+    written once)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import attention_plain, mha
+    from repro_torch.launch.bench_kernels import graph_ms, loop_ms
+    gen = torch.Generator(device=dev).manual_seed(17)
+    qx = torch.randn((LM_BATCH, sq, hq, d), generator=gen, device=dev)
+    kv = torch.randn((LM_BATCH, sk, 2 * hkv, d), generator=gen, device=dev)
+    # [B, H, S, D] views of the model's [B, S, H, D] layout
+    q = qx.bfloat16().transpose(1, 2)
+    k, v = (x.transpose(1, 2) for x in kv.bfloat16().split(hkv, dim=2))
+    del qx, kv
+
+    def kern(q_, k_, v_):
+        return mha(q_, k_, v_, causal=causal, scale=scale)
+    err, share = close(kern(q, k, v), attention_plain(
+        q, k, v, causal=causal, scale=scale), f"flash_attention {name}")
+    pairs = LM_BATCH * hq * (causal_pairs(sq, 0) if causal else sq * sk)
+    ops_ms = 1e3 * 4 * d * pairs / BF16_OPS_PER_S
+    bytes_ms = 1e3 * 2 * LM_BATCH * d * (2 * sq * hq + 2 * sk * hkv) \
+        / HBM_BYTES_PER_S
+    sets = cold(q, k, v)
+    row = {"shape": f"{name}: B={LM_BATCH}, {hq}/{hkv} heads, Sq={sq}, "
+                    f"Sk={sk}, D={d}, {'causal' if causal else 'non-causal'}"
+                    f", no cap or window",
+           "max_abs_err": err, "bar_share": share,
+           "ms": graph_ms(kern, sets, 10),
+           "plain_ms": loop_ms(lambda: attention_plain(
+               q, k, v, causal=causal, scale=scale), [()], 2),
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    sdpa_sets = [tuple(x.contiguous() for x in s) for s in sets]
+    del sets
+    row["library_ms"] = graph_ms(
+        lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_, k_, v_, is_causal=causal, scale=scale, enable_gqa=True),
+        sdpa_sets, 10)
+    del sdpa_sets, q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def cold(*tensors):
+    """``tensors`` and enough copies of them to outgrow the L2 twice,
+    for ``graph_ms`` to cycle through (a layer finds its inputs cold)."""
+    from repro_torch.launch.bench_kernels import copies
+    n = copies(sum(t.numel() * t.element_size() for t in tensors))
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(n - 1)]
+
+
+def vlm_phase(dev, card) -> dict:
+    """Phase 18: qwen2-vl-2b served at full width on ``demo_requests``'
+    embedding prompts; the wiring run on M-RoPE ids with distinct
+    streams (``demo_requests``' equal streams reduce M-RoPE to RoPE):
+    VLM_TEXT text positions, then a VLM_GRID patch grid, Qwen2-VL's
+    layout of an image after text."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import demo_requests
+    t_phase = time.perf_counter()
+    cfg = get_config(VLM_ARCH)
+    text, (rows, cols) = VLM_TEXT, VLM_GRID
+    if text + rows * cols != PROMPT2:
+        raise AssertionError("the wiring prompt must be PROMPT2 long")
+    r = torch.arange(rows * cols, device=dev) // cols
+    c = torch.arange(rows * cols, device=dev) % cols
+    t_ids = torch.arange(text, device=dev)
+    thw = torch.stack([torch.cat([t_ids, torch.full_like(r, text)]),
+                       torch.cat([t_ids, text + r]),
+                       torch.cat([t_ids, text + c])]).to(torch.int32)
+    batch = demo_requests(cfg, LM_BATCH, PROMPT2, seed=0, device=dev)
+    batch["positions"] = thw[:, None].expand(3, LM_BATCH, PROMPT2)
+    n = cfg.num_layers
+    out, params = lm_path(
+        dev, card, 18, cfg, {"flash_attention": n, "decode_attention": 0},
+        {"flash_attention": 0, "decode_attention": n}, wiring_batch=batch,
+        rms_bar=True)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["walls_s"]["phase"] = time.perf_counter() - t_phase
+    say("phase 18 walls s " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out["walls_s"].items()) + f" [{card}]")
+    return out
+
+
+def encdec_phase(dev, card) -> dict:
+    """Phase 19: seamless-m4t-medium served at full width on
+    ``demo_requests``' traffic (PROMPT2 decoder embeddings and as many
+    encoder frames); the wiring run on a decoder prompt of
+    ENCDEC_WIRING_PROMPT over PROMPT2 frames, so cross attention runs
+    Sq != Sk; and the logits move when the encoder's input does."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import demo_requests
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    full = demo_requests(cfg, LM_BATCH, PROMPT2, seed=0, device=dev)
+    batch = {"embeddings": full["embeddings"][:, :ENCDEC_WIRING_PROMPT],
+             "enc_emb": full["enc_emb"]}
+    n = cfg.num_layers
+    out, params = lm_path(
+        dev, card, 19, cfg,
+        {"flash_attention": cfg.num_encoder_layers + 2 * n,
+         "decode_attention": 0},
+        {"flash_attention": 0, "decode_attention": 2 * n},
+        wiring_batch=batch)
+    # no ``rms_bar``: in this bf16 model a change in the rounding of a few
+    # attention outputs grows into the whole bf16 rounding spread, so the
+    # kernels' and the plain versions' bf16 logits lie about as far from
+    # each other as each lies from the float32 ones; lm_path's RMS_K bar
+    # holds the kernels' bf16 logits to float32 instead
+    # the encoder is read: other frames move the prefill's logits (in
+    # float32, the weights' dtype after the wiring run)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    other = demo_requests(cfg, LM_BATCH, PROMPT2, seed=1,
+                          device=dev)["enc_emb"]
+    emb = batch["embeddings"].float()
+    a = tfm.prefill(params, cfg32, {"embeddings": emb,
+                                    "enc_emb": batch["enc_emb"].float()},
+                    ENCDEC_WIRING_PROMPT + 1)[0]
+    b = tfm.prefill(params, cfg32, {"embeddings": emb,
+                                    "enc_emb": other.float()},
+                    ENCDEC_WIRING_PROMPT + 1)[0]
+    moved, top = float((a - b).abs().max()), float(a.abs().max())
+    say(f"phase 19 encoder read: other encoder frames move the prefill's "
+        f"logits by up to {moved:.4g} (max |logit| {top:.4g}) [{card}]")
+    if not (bool(torch.isfinite(a).all()) and moved > 1e-3 * top):
+        raise AssertionError(f"{ENCDEC_ARCH}: the logits do not move with "
+                             f"the encoder's input (max |dlogit| {moved})")
+    out.update(encoder_moves_logits=moved, max_logit=top)
+    del params, batch, full, other, a, b, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["walls_s"]["phase"] = time.perf_counter() - t_phase
+    say("phase 19 walls s " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out["walls_s"].items()) + f" [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -695,17 +1087,9 @@ def main() -> int:
         book_stream, book_stream_plain, booking_plan, events_per_pass)
     from repro_torch.launch.bench_kernels import (
         BATCH, DECODE_SHAPES, bench_decode, bench_ssd, booking_bound_ms,
-        booking_stream, copies, decode_sets, graph_ms, launch_floor_ms,
-        loop_ms, operator_tape, scan_bound_ms)
-
-    def cold(*tensors):
-        """``tensors`` and enough copies of them to outgrow the L2 twice,
-        for ``graph_ms`` to cycle through (a layer finds its inputs
-        cold)."""
-        n = copies(sum(t.numel() * t.element_size() for t in tensors))
-        return [tensors] + [tuple(t.clone() for t in tensors)
-                            for _ in range(n - 1)]
-    from repro_torch.models import layers, mamba2, moe
+        booking_stream, decode_sets, graph_ms, launch_floor_ms, loop_ms,
+        operator_tape, scan_bound_ms)
+    from repro_torch.models import layers, moe
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.engine import (SchedulerService, ServeConfig,
                                             ServingEngine, demo_requests)
@@ -997,37 +1381,21 @@ def main() -> int:
     k3_plain_ms = sum(k3["plain_ms"].values()) / 2
     k3_bound = sum(k3["bound_ms"].values()) / 2
     del q, k, v, qc, kc, vc
-    # granite-moe-3b-a800m's prefill attention (D=64, no cap, no window),
-    # where the scalar work per score weighs most, beside SDPA
-    gcfg = get_config(MOE_ARCH)
-    ghq, ghkv, ghd = (gcfg.num_heads, gcfg.num_kv_heads,
-                      gcfg.resolved_head_dim)
-    gscale = tfm._attn_scale(gcfg)
-    qkv = torch.randn((LM_BATCH, PROMPT2, ghq + 2 * ghkv, ghd), generator=gen,
-                      device=dev).to(bf16)
-    gq, gk, gv = (x.transpose(1, 2) for x in (
-        qkv[:, :, :ghq], qkv[:, :, ghq:ghq + ghkv], qkv[:, :, ghq + ghkv:]))
-    err, share = close(mha(gq, gk, gv, scale=gscale),
-                       attention_plain(gq, gk, gv, scale=gscale),
-                       f"flash_attention {MOE_ARCH}")
-    k3["err"], k3["share"] = max(k3["err"], err), max(k3["share"], share)
-    gqc, gkc, gvc = (x.contiguous() for x in (gq, gk, gv))
-    k3g = {"shape": f"{MOE_ARCH}: B={LM_BATCH}, {ghq}/{ghkv} heads, "
-                    f"S={PROMPT2}, D={ghd}, causal, no cap or window",
-           "ms": graph_ms(lambda q_, k_, v_: mha(q_, k_, v_, scale=gscale),
-                          cold(gq, gk, gv), 10),
-           "plain_ms": loop_ms(lambda: attention_plain(gq, gk, gv,
-                                                       scale=gscale), [()], 2),
-           "library_ms": graph_ms(
-               lambda q_, k_, v_: F.scaled_dot_product_attention(
-                   q_, k_, v_, is_causal=True, scale=gscale,
-                   enable_gqa=True), cold(gqc, gkc, gvc), 10),
-           "bound_ms": 1e3 * max(
-               4 * ghd * LM_BATCH * ghq * causal_pairs(PROMPT2, 0)
-               / BF16_OPS_PER_S,
-               2 * LM_BATCH * PROMPT2 * (2 * ghq + 2 * ghkv) * ghd
-               / HBM_BYTES_PER_S)}
-    del qkv, gq, gk, gv, gqc, gkc, gvc
+    # the served paths' other prefill shapes (no cap, no window), each
+    # beside SDPA: granite-moe-3b-a800m's (D=64, where the scalar work per
+    # score weighs most), qwen2-vl-2b's (a GQA group of 6) and
+    # seamless-m4t-medium's cross attention (non-causal, Sq != Sk)
+    k3["rows"] = []
+    for name, sq, causal in ((MOE_ARCH, PROMPT2, True),
+                             (VLM_ARCH, PROMPT2, True),
+                             (ENCDEC_ARCH, ENCDEC_WIRING_PROMPT, False)):
+        c_ = get_config(name)
+        row = flash_row(dev, name if causal else f"{name} cross",
+                        c_.num_heads, c_.num_kv_heads, sq, PROMPT2,
+                        c_.resolved_head_dim, causal, tfm._attn_scale(c_))
+        k3["err"] = max(k3["err"], row["max_abs_err"])
+        k3["share"] = max(k3["share"], row["bar_share"])
+        k3["rows"].append(row)
     say(f"phase 7 flash_attention (bf16, B={LM_BATCH}, {hq}/{hkv} heads, "
         f"S={PROMPT}, D={hd}, cap {cap}): max abs err {k3['err']:.3g}, "
         f"{k3['share']:.3f} of the bf16 bar at worst (rms |plain| "
@@ -1041,9 +1409,13 @@ def main() -> int:
         + ", ".join(f"window {w}: {t:.4f}" for w, t in
                     k3["bound_ms"].items())
         + f"; at cap 0, window 0: kernel {k3_cap0_ms:.4f} ms, SDPA "
-        f"{sdpa_ms:.4f} ms; {k3g['shape']}: kernel {k3g['ms']:.4f} ms, "
-        f"plain {k3g['plain_ms']:.3f} ms, SDPA {k3g['library_ms']:.4f} ms, "
-        f"bound {k3g['bound_ms']:.4f} ms (operations) [{card}]")
+        f"{sdpa_ms:.4f} ms; "
+        + "; ".join(f"{r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.4f} "
+                    f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                    f"max abs err {r['max_abs_err']:.3g}"
+                    for r in k3["rows"])
+        + f" [{card}]")
 
     # ---- 8. decode_attention vs plain ----------------------------------
     idx = PROMPT + DECODE_STEPS - 12           # a step late in the decode
@@ -1071,8 +1443,9 @@ def main() -> int:
         k4["plain_ms"][c_len] = loop_ms(lambda: decode_attention_plain(
             qd, kd, vd, pos, scale=scale, logit_cap=cap), [()], 10)
     del qd, kd, vd
-    # granite's and zamba2's decode shapes (heads of 64, 3 and 1 query
-    # heads per kv head), against the plain version as well
+    # granite's, zamba2's, qwen2-vl's and seamless's cross decode shapes
+    # (3, 1, 6 and 1 query heads per kv head), against the plain version
+    # as well
     for name, hq_, hkv_, hd_, c_, window_, cap_, prompt_ in \
             DECODE_SHAPES[2:]:
         (q_, k_, v_, p_), = decode_sets(hq_, hkv_, hd_, c_, window_, prompt_,
@@ -1113,7 +1486,6 @@ def main() -> int:
                     for r in k4["rows"])
         + f" [{card}]")
     results["attention_kernels"] = {"flash_attention": k3,
-                                    "flash_attention_granite": k3g,
                                     "decode_attention": k4,
                                     "flash_attention_cap0_ms": k3_cap0_ms,
                                     "sdpa_prefill_ms": sdpa_ms}
@@ -1371,166 +1743,24 @@ def main() -> int:
     results["ssd_scan"] = [k6, k6_long]
 
     # ---- 12-13. LM serve: the MoE and hybrid paths ---------------------
-    entries = {"flash_attention": (layers, "mha", mha, attention_plain, None),
-               "decode_attention": (tfm, "gqa_decode", gqa_decode,
-                                    decode_attention_plain, None),
-               "expert_matmul": (moe, "gmm", gmm, expert_matmul_plain, None),
-               "ssd_scan": (mamba2, "ssd", ssd, ssd_plain, SSD_TOL)}
-
-    def lm_path(phase, cfg_, per_prefill, per_step):
-        """Serve ``cfg_`` at full width (the traffic of phase 9 at prompts
-        of PROMPT2), a flight of 2, and the wiring run; ``per_prefill`` and
-        ``per_step`` are the launches each kernel of the path must make."""
-        t0 = time.perf_counter()
-        params_ = tfm.init_params(cfg_, 0, device=dev)
-        torch.cuda.synchronize()
-        n_par = sum(p.numel() for p in params_.parameters())
-        say(f"phase {phase} {cfg_.name}: {n_par:,} parameters "
-            f"({torch.cuda.memory_allocated() / 1e9:.1f} GB on the card) "
-            f"drawn in {time.perf_counter() - t0:.1f} s")
-        batches_ = [demo_requests(cfg_, LM_BATCH, PROMPT2, seed=i,
-                                  device=dev) for i in range(LM_BATCHES)]
-        eng_ = ServingEngine(cfg_, params_, ServeConfig(
-            max_len=MAX_LEN2, decode_steps=DECODE_STEPS), device=dev)
-        wrappers = {name: entries[name][2] for name in per_prefill}
-        for fn in wrappers.values():
-            fn.launches = 0
-        stats_ = eng_.serve(batches_)
-        got = {name: fn.launches for name, fn in wrappers.items()}
-        n_pre, n_step = 2 + LM_BATCHES, 2 + LM_BATCHES * DECODE_STEPS
-        want_ = {name: per_prefill[name] * n_pre + per_step[name] * n_step
-                 for name in per_prefill}
-        if got != want_:
-            raise AssertionError(f"{cfg_.name} serve launched {got}, "
-                                 f"expected {want_}")
-        summ_ = stats_.summary()
-        say(f"phase {phase} serve: {summ_['requests']} requests (B="
-            f"{LM_BATCH}, prompt {PROMPT2}, {DECODE_STEPS} decode steps, "
-            f"max_len {MAX_LEN2}): prefill {summ_['prefill_s'] * 1e3:.1f} ms,"
-            f" decode {summ_['decode_step_s'] * 1e3:.3f} ms/step, "
-            f"{LM_BATCH / summ_['decode_step_s']:.1f} decode tokens/s, "
-            f"request p50 {summ_['p50_s'] * 1e3:.1f} ms, p99 "
-            f"{summ_['p99_s'] * 1e3:.1f} ms; first call "
-            f"{summ_['cold_s']:.2f} s, warm {summ_['warm_s']:.2f} s; "
-            f"launches {got} ({n_pre} prefills, {n_step} decode steps) "
-            f"[{card}]")
-        fl_eng = ServingEngine(cfg_, params_, ServeConfig(
-            max_len=MAX_LEN2, decode_steps=DECODE_STEPS, flight_size=2),
-            device=dev)
-        fl_eng.warmup(batches_[0])
-        flown_ = fl_eng.generate_flight(batches_[0])
-        ref_ = eng_.generate(batches_[0])
-        if flown_.tokens.shape != (LM_BATCH, DECODE_STEPS) or not (
-                flown_.tokens == ref_.tokens).all():
-            raise AssertionError(f"{cfg_.name}: the flight's tokens differ "
-                                 f"from generate's")
-        say(f"phase {phase} flight of 2: {flown_.latency_s * 1e3:.1f} ms, "
-            f"tokens equal generate's ({ref_.latency_s * 1e3:.1f} ms) "
-            f"[{card}]")
-
-        # the wiring: every kernel call of a prefill and WIRING_STEPS
-        # teacher-forced steps held to its plain version on its inputs
-        forced_ = torch.as_tensor(ref_.tokens[:, :WIRING_STEPS], device=dev)
-        calls = {name: [0, 0.0, 0.0] for name in per_prefill}
-
-        def shadowed(name):
-            _, _, kernel, plain, bar = entries[name]
-
-            def run(*args, **kw):
-                out = kernel(*args, **kw)
-                err, share = close(out, plain(*args, **kw),
-                                   f"{cfg_.name} {name}", bar)
-                rec = calls[name]
-                rec[:] = rec[0] + 1, max(rec[1], err), max(rec[2], share)
-                return out
-            return run
-
-        def logits_of(swap, cfg_run=cfg_):
-            with contextlib.ExitStack() as swaps:
-                for name, fn in swap.items():
-                    mod, attr = entries[name][:2]
-                    swaps.enter_context(mock.patch.object(mod, attr, fn))
-                logits, cache = tfm.prefill(params_, cfg_run, batches_[0],
-                                            MAX_LEN2)
-                outs = [logits.float()]
-                for i in range(WIRING_STEPS):
-                    logits, cache = tfm.decode_step(params_, cfg_run, cache,
-                                                    forced_[:, i:i + 1])
-                    outs.append(logits.float())
-                del cache
-            out = torch.stack(outs)
-            if out.shape != (WIRING_STEPS + 1, LM_BATCH, cfg_.vocab_size) \
-                    or not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"{cfg_.name}: logits {out.shape} are "
-                                     f"not finite or of the wrong shape")
-            return out
-
-        kern_ = logits_of({name: shadowed(name) for name in per_prefill})
-        want_calls = {name: per_prefill[name] + WIRING_STEPS * per_step[name]
-                      for name in per_prefill}
-        if {name: rec[0] for name, rec in calls.items()} != want_calls:
-            raise AssertionError(f"{cfg_.name}: the wiring run made {calls} "
-                                 f"kernel calls, expected {want_calls}")
-        plain_ = logits_of({name: entries[name][3] for name in per_prefill})
-        diff = (kern_ - plain_).abs()
-        wiring_max = float(diff.max())
-        agree = float((greedy_sample(kern_) == greedy_sample(plain_))
-                      .float().mean())
-        say(f"phase {phase} wiring, every kernel call against its plain "
-            f"version on the model's activations: "
-            + "; ".join(f"{name} {rec[0]} calls, max abs err {rec[1]:.4g}, "
-                        f"{rec[2]:.3f} of its bar at worst"
-                        for name, rec in calls.items())
-            + f"; logits kernels vs plain: max {float(diff.max()):.4g}, rms "
-            f"{float(diff.square().mean().sqrt()):.4g}, greedy tokens agree "
-            f"{agree:.3f} [{card}]")
-        del kern_, plain_, diff
-        # the same weights in float32: there the kernels agree with their
-        # plain versions to float32 rounding, with no bf16 rounding to
-        # flip a router's choice, so the logits are held as gemma2-9b's
-        cfg32_ = dataclasses.replace(cfg_, dtype="float32")
-        for w_ in params_.parameters():
-            w_.data = w_.data.float()
-        kern32_ = logits_of({}, cfg32_)
-        plain32_ = logits_of({name: entries[name][3] for name in per_prefill},
-                             cfg32_)
-        err32_ = float((kern32_ - plain32_).abs().max())
-        top32_ = float(plain32_.abs().max())
-        agree32_ = float((greedy_sample(kern32_) == greedy_sample(plain32_))
-                         .float().mean())
-        say(f"phase {phase} wiring float32 (prefill + {WIRING_STEPS} "
-            f"teacher-forced steps, kernels vs plain versions): max "
-            f"|dlogit| {err32_:.4g} against 1e-3 x max |logit| = "
-            f"{1e-3 * top32_:.4g}, greedy tokens agree {agree32_:.3f} "
-            f"[{card}]")
-        if not err32_ <= 1e-3 * top32_:
-            raise AssertionError(f"{cfg_.name} float32: kernels and plain "
-                                 f"versions disagree: max |dlogit| {err32_} "
-                                 f"> {1e-3 * top32_}")
-        del params_, eng_, fl_eng, kern32_, plain32_
-        gc.collect()
-        torch.cuda.empty_cache()
-        return dict(summ_, decode_tokens_per_s=LM_BATCH
-                    / summ_["decode_step_s"], launches=got, params=n_par,
-                    flight_s=flown_.latency_s, wiring_calls=calls,
-                    wiring_logits_max_abs=wiring_max,
-                    greedy_agreement=agree, wiring_f32_max_abs=err32_,
-                    wiring_f32_bar=1e-3 * top32_,
-                    greedy_agreement_f32=agree32_)
-
     n_moe = mcfg.num_layers
     results["moe_serve"] = lm_path(
-        12, mcfg,
+        dev, card, 12, mcfg,
         {"expert_matmul": 3 * n_moe, "flash_attention": n_moe,
          "decode_attention": 0},
         {"expert_matmul": 3 * n_moe, "flash_attention": 0,
-         "decode_attention": n_moe})
+         "decode_attention": n_moe})[0]
     n_shared = hcfg.num_layers // hcfg.hybrid_attn_every
+    gc.collect()
+    torch.cuda.empty_cache()
     results["hybrid_serve"] = lm_path(
-        13, hcfg,
+        dev, card, 13, hcfg,
         {"ssd_scan": hcfg.num_layers, "flash_attention": n_shared,
          "decode_attention": 0},
-        {"ssd_scan": 0, "flash_attention": 0, "decode_attention": n_shared})
+        {"ssd_scan": 0, "flash_attention": 0,
+         "decode_attention": n_shared})[0]
+    gc.collect()
+    torch.cuda.empty_cache()
     # the kernel's time, bound, plain and library time per launch, averaged
     # over the MoE path's launches (prefill and decode shapes as served)
     n_pre2, n_step2 = 2 + LM_BATCHES, 2 + LM_BATCHES * DECODE_STEPS
@@ -1555,7 +1785,20 @@ def main() -> int:
     results["experiments"] = experiments_phase(dev, card)
     sweep = results["experiments"]["sweep_launches"]
 
-    # ---- 18. kernels line --------------------------------------------------
+    # ---- 18-19. LM serve: the VLM and encoder-decoder paths ---------------
+    results["vlm_serve"] = vlm_phase(dev, card)
+    results["encdec_serve"] = encdec_phase(dev, card)
+    paths = {ARCH: lm_launches, **{
+        name: results[key]["launches"] for name, key in (
+            (MOE_ARCH, "moe_serve"), (HYBRID_ARCH, "hybrid_serve"),
+            (VLM_ARCH, "vlm_serve"), (ENCDEC_ARCH, "encdec_serve"))}}
+
+    def path_launches(kernel):
+        """The kernel's launches in each LM path's serve run."""
+        return {name: got[kernel] for name, got in paths.items()
+                if kernel in got}
+
+    # ---- 20. kernels line --------------------------------------------------
     kernels = [
         {"name": "queue_booking", "route": "cuda",
          "source": "src/repro_torch/csrc/queue_booking.cu",
@@ -1592,7 +1835,8 @@ def main() -> int:
          "library_call": "scaled_dot_product_attention, causal, GQA; "
                          "it has no logit cap, so it and ms_like_library "
                          "are at cap 0, window 0",
-         "shapes": [k3g]},
+         "path_launches": path_launches("flash_attention"),
+         "shapes": k3["rows"]},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:67",
@@ -1605,6 +1849,7 @@ def main() -> int:
                          "ms_like_library are at cap 0; ms and library_ms "
                          "are device times (CUDA graph replay), caches "
                          "cold",
+         "path_launches": path_launches("decode_attention"),
          "shapes": k4["rows"]},
         {"name": "expert_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/expert_matmul.cu",

@@ -11,12 +11,15 @@ engine has just written, beside the launch floor: an empty kernel
 launched as K2 is, timed the same way (the ops module's ``noop_launch``;
 ``null`` for a checkout without it); and K1 under other lane plans than
 the wrapper's (``K1_PLANS``), each with its SASS counts.
-``gqa_decode`` (K4) at the decode shapes of the three served models, bf16,
+``gqa_decode`` (K4) at the decode shapes of the five served models, bf16,
 B=2: gemma2-9b (16 q / 8 kv heads of 256; a global layer's cache of
 4,648 slots and a local layer's ring of 4,096, logit cap 50, and both at
 cap 0 beside ``scaled_dot_product_attention`` with the slot mask),
-granite-moe-3b-a800m (24 / 8 heads of 64, 4,136 slots) and zamba2-1.2b's
-shared block (32 / 32 heads of 64, 4,136 slots), each beside SDPA; and
+granite-moe-3b-a800m (24 / 8 heads of 64, 4,136 slots), zamba2-1.2b's
+shared block (32 / 32 heads of 64, 4,136 slots), qwen2-vl-2b (12 / 2
+heads of 128, 4,136 slots) and seamless-m4t-medium's cross attention (16
+/ 16 heads of 64 over the encoder's 4,096 frames, every slot valid),
+each beside SDPA; and
 ``ssd`` (K6) at zamba2-1.2b's prefill (B=2, 64 heads, P=N=64, float32)
 at each of ``--ssd-lengths`` (S=4,096 is the served prompt; longer ones
 show how the time grows with the number of chunks).  Every timing cycles
@@ -68,6 +71,10 @@ DECODE_SHAPES = [
      PROMPT2),
     ("zamba2-1.2b shared", 32, 32, 64, PROMPT2 + DECODE_STEPS + 8, 0, 0.0,
      PROMPT2),
+    ("qwen2-vl-2b", 12, 2, 128, PROMPT2 + DECODE_STEPS + 8, 0, 0.0,
+     PROMPT2),
+    # the cross attention's cache: the encoder's PROMPT2 frames, all valid
+    ("seamless-m4t-medium cross", 16, 16, 64, PROMPT2, 0, 0.0, PROMPT2),
 ]
 
 
@@ -284,14 +291,20 @@ def decode_sets(hq, hkv, d, c, window, prompt, batch, seed, dev,
 
 
 def bench_decode(reps: int, dev, batch: int = 2) -> list:
-    from repro_torch.kernels.decode_attention.ops import gqa_decode
+    from repro_torch.kernels.decode_attention import ops as dops
+    gqa_decode = dops.gqa_decode
     rows = []
     for name, hq, hkv, d, c, window, cap, prompt in DECODE_SHAPES:
         sets, nbytes = decode_sets(hq, hkv, d, c, window, prompt, batch, 5,
                                    dev)
         scale = d ** -0.5
+        # the launch's shape: slots a tile, blocks a cluster, tiles a block
+        tile, per_sm, max_cluster = dops._shape(1, d, hq // hkv)
+        cluster, per = dops.plan(batch * hkv, c, tile,
+                                 per_sm * dops._sm_count(dev), max_cluster)
         row = dict(shape=name, B=batch, Hq=hq, Hkv=hkv, D=d, C=c,
-                   cap=cap, copies=len(sets))
+                   cap=cap, copies=len(sets), tile=tile, cluster=cluster,
+                   tiles_per_block=per)
         kern = lambda q, k, v, p: gqa_decode(q, k, v, p, scale=scale,  # noqa
                                              logit_cap=cap)
         row["loop_ms"] = loop_ms(kern, sets, reps)

@@ -7,9 +7,16 @@
         --arch granite-moe-3b-a800m --prompt-len 4096
     PYTHONPATH=src python -m repro_torch.launch.bench_lm \
         --arch zamba2-1.2b --prompt-len 4096
+    PYTHONPATH=src python -m repro_torch.launch.bench_lm \
+        --arch qwen2-vl-2b --prompt-len 4096
+    PYTHONPATH=src python -m repro_torch.launch.bench_lm \
+        --arch seamless-m4t-medium --prompt-len 4096
 
-Any ported family runs (dense, MoE, SSM, hybrid); a Mamba2 model's prompt
-must be a multiple of its SSD chunk (256) or shorter than it.
+Every family runs (dense, MoE, SSM, hybrid, the VLM and the
+encoder-decoder) on ``demo_requests`` traffic (embedding prompts, and
+for seamless-m4t-medium encoder frames as many as the prompt); a Mamba2
+model's prompt must be a multiple of its SSD chunk (256) or shorter than
+it.
 
 Draws the model's weights (seed 0) on the card, warms up one prefill and
 one decode step, then times ``--reps`` prefills and ``--decode-steps``

@@ -7,19 +7,26 @@ or the live streaming Raptor scheduler service.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-3b-a800m --prompt-len 4096 --decode-steps 32
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium --prompt-len 4096 --decode-steps 32
+
     PYTHONPATH=src python -m repro_torch.launch.serve --mode scheduler \
         --workload keygen --load high --jobs 4096 --arrival mmpp
 
 Runs on the CUDA card unless ``--device cpu`` is given (with
-``--reduced`` for a model small enough for the CPU).  Generation runs the
-dense, MoE, SSM and hybrid families (``--arch`` gemma-2b, gemma2-9b,
-gemma3-27b, phi3-mini-3.8b, granite-moe-3b-a800m,
-llama4-maverick-400b-a17b, mamba2-1.3b, zamba2-1.2b): prefill attention
-through the ``flash_attention`` kernel, decode attention through
-``decode_attention``, expert MLPs through ``expert_matmul``, prefill
-Mamba2 scans through ``ssd_scan`` (a Mamba2 model's prompt must be a
-multiple of its SSD chunk, 256, or shorter); the VLM and audio families
-raise ``NotImplementedError`` naming their ROADMAP item.  In scheduler mode
+``--reduced`` for a model small enough for the CPU).  Generation runs
+every family (``--arch`` gemma-2b, gemma2-9b, gemma3-27b, phi3-mini-3.8b,
+granite-moe-3b-a800m, llama4-maverick-400b-a17b, mamba2-1.3b,
+zamba2-1.2b, the VLM qwen2-vl-2b and the encoder-decoder
+seamless-m4t-medium) on ``demo_requests`` traffic: token prompts, or for
+the two embedding-input models random prompt embeddings (and
+seamless-m4t-medium's encoder frames, as many as the prompt; qwen2-vl's
+M-RoPE ids equal in its three streams).  Prefill attention runs through
+the ``flash_attention`` kernel (the encoder's and the cross attention
+non-causal), decode attention through ``decode_attention``, expert MLPs
+through ``expert_matmul``, prefill Mamba2 scans through ``ssd_scan`` (a
+Mamba2 model's prompt must be a multiple of its SSD chunk, 256, or
+shorter).  In scheduler mode
 ``--scan logdepth --summary-backend kernel`` books through the
 ``maxplus_scan`` kernel.
 """

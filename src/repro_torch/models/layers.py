@@ -6,7 +6,8 @@ the ``flash_attention`` kernel on the card; the reference's three jnp
 strategies (``attention_full``, ``attention_blockwise``,
 ``attention_sliding_blocked``) are XLA memory layouts of that one
 function, and the tests hold the kernel's plain version to each of them.
-``apply_mrope`` (qwen2-vl) comes with the VLM slice.
+The encoder's self-attention and the decoder's cross attention of an
+encoder-decoder model go through the same kernel with ``causal=False``.
 """
 from __future__ import annotations
 
@@ -54,6 +55,22 @@ def rope_tables(positions, hd: int, theta: float):
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
+def mrope_tables(positions_thw, hd: int, theta: float, sections):
+    """qwen2-vl's multimodal rotary tables: cos and sin, float32 [B, S, 1,
+    hd/2], for ``positions_thw`` [3, B, S] (the t, h and w ids).  The
+    half-dims are cut into ``sections``; half-dim ``j`` takes its angle
+    from stream ``np.repeat(arange(3), sections)[j]``, so each section
+    of the frequencies is scaled by its own stream (no index map)."""
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must add up to "
+                         f"head_dim / 2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, positions_thw.device)     # [hd/2]
+    pos = positions_thw.float()[..., None]                   # [3, B, S, 1]
+    ang = torch.cat([pos[i] * f for i, f in
+                     enumerate(freqs.split(list(sections)))], dim=-1)
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
 def rotate(x, cos, sin):
     """Half-split rotary embedding in float32, given the tables.
     x: [B, S, H, hd]."""
@@ -68,15 +85,25 @@ def apply_rope(x, positions, theta: float):
     return rotate(x, *rope_tables(positions, x.shape[-1], theta))
 
 
-def attention(q, k, v, *, window: int = 0, logit_cap: float = 0.0,
-              scale: float):
-    """Causal self-attention of a prefill through the ``flash_attention``
-    kernel.  q: [B, S, Hq, hd]; k, v: [B, S, Hkv, hd] -> [B, S, Hq, hd].
+def apply_mrope(x, positions_thw, theta: float, sections):
+    """qwen2-vl multimodal rotary embedding in float32.  x: [B, S, H, hd];
+    positions_thw: [3, B, S] int (the t, h and w ids)."""
+    return rotate(x, *mrope_tables(positions_thw, x.shape[-1], theta,
+                                   sections))
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              logit_cap: float = 0.0, scale: float):
+    """Attention of a prefill through the ``flash_attention`` kernel:
+    causal self-attention, or with ``causal=False`` an encoder's
+    self-attention or a decoder's cross attention (Sk may differ from Sq).
+    q: [B, Sq, Hq, hd]; k, v: [B, Sk, Hkv, hd] -> [B, Sq, Hq, hd].
 
     The kernel reads the ``transpose(1, 2)`` views through their strides
     and writes a ``[B, S, Hq, hd]`` buffer, so no copy is made here on the
     card.
     """
     out = mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-              causal=True, window=window, logit_cap=logit_cap, scale=scale)
+              causal=causal, window=window, logit_cap=logit_cap,
+              scale=scale)
     return out.transpose(1, 2)

@@ -2,33 +2,50 @@
 
 The port of ``repro/models/transformer.py`` for the dense family
 (gemma-2b, gemma2-9b, gemma3-27b, phi3-mini), the MoE family
-(granite-moe-3b-a800m, llama4-maverick), the SSM family (mamba2-1.3b) and
-the hybrid family (zamba2-1.2b): GQA attention with RoPE, global or local
+(granite-moe-3b-a800m, llama4-maverick), the SSM family (mamba2-1.3b),
+the hybrid family (zamba2-1.2b), the VLM backbone (qwen2-vl-2b) and the
+encoder-decoder (seamless-m4t-medium): GQA attention with RoPE or
+qwen2-vl's M-RoPE over ``[3, B, S]`` (t, h, w) positions, global or local
 (sliding-window) layers, attention and final logit caps, a SwiGLU or
 GeGLU MLP or a Mixture-of-Experts block, Mamba2 layers and zamba2's one
 shared attention+MLP block applied after every ``hybrid_attn_every``-th
-layer, RMS norms.  The parameter pytree keeps the reference's names and
+layer, a bidirectional encoder and cross attention, RMS norms.  A model
+with ``embedding_inputs`` takes ``[B, S, D]`` embeddings (the modality
+frontends are stubs, as in the reference) and token ids after the
+prompt.  The parameter pytree keeps the reference's names and
 orientation (``x @ wq`` with ``wq [d, hq*hd]``) as a module,
 :class:`ParamTree`: ``embed``, ``final_norm``, ``lm_head`` (untied heads
 only), ``layers.{i}.attn.{wq,wk,wv,wo}``, ``layers.{i}.mlp.{w_gate,w_up,
 w_down}`` or ``layers.{i}.moe.{router,w_gate,w_up,w_down[,shared]}``,
 ``layers.{i}.ssm.*`` (Mamba2 layers), ``layers.{i}.ln1``, ``ln2``,
-``shared_block.*`` (hybrid).
+``shared_block.*`` (hybrid); an encoder-decoder's decoder layers add
+``ln_cross`` and ``cross.{wq,wk,wv,wo}``, and ``encoder.layers.{i}``
+(``ln1``, ``attn``, ``ln2``, ``mlp``) and ``encoder.final_norm`` hold its
+encoder.
 
-Prefill attention goes through the ``flash_attention`` kernel, decode
-attention through ``decode_attention``, every expert MLP product through
+Prefill attention goes through the ``flash_attention`` kernel (the
+encoder's and the cross attention with ``causal=False``), decode
+attention through ``decode_attention`` (cross attention over every slot
+of the encoder's keys), every expert MLP product through
 ``expert_matmul`` and every prefill Mamba2 scan through ``ssd_scan``.
 The decode cache is a dict ``{"index": int, "layer_{i}": {"k": [B, C, Hkv,
 hd], "v": ...} or a Mamba2 layer's {"conv_x", "conv_B", "conv_C",
-"state"}, "shared_{j}": {"k", "v"}}``; unlike the reference's functional
-update, prefill and :func:`decode_step` write it IN PLACE (a step would
-otherwise copy the whole cache), so a caller that decodes twice from one
-prefill clones it first (:func:`clone_cache`).
+"state"} or an encoder-decoder layer's {"self": {"k", "v"}, "cross_k":
+[B, Se, Hkv, hd], "cross_v"}, "shared_{j}": {"k", "v"}}``; unlike the
+reference's functional update, prefill and :func:`decode_step` write it
+IN PLACE (a step would otherwise copy the whole cache), so a caller that
+decodes twice from one prefill clones it first (:func:`clone_cache`).
+
+The encoder-decoder's prefill computes each layer's cross K/V from the
+encoder's output and keeps them in the cache.  The reference's
+``prefill`` allocates that cache zero-filled and then reads it as if it
+were computed, so its decoder never sees the encoder; the port follows
+the reference's own branch that computes them (``_decoder_block_apply``
+with a cache that holds no ``cross_k``).
 
 What this slice leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: the VLM (M-RoPE) and encoder-decoder families,
-``pad_heads``, the sharding hooks (``constrain``, ``ep``) and training
-(``loss_fn``).
+ROADMAP item: ``pad_heads``, the sharding hooks (``constrain``, ``ep``)
+and training (``loss_fn``, ``mode="train"``).
 """
 from __future__ import annotations
 
@@ -42,17 +59,14 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import gqa_decode
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.layers import (attention, mlp_block, rms_norm,
-                                       rope_tables, rotate, softcap)
+from repro_torch.models.layers import (attention, mlp_block, mrope_tables,
+                                       rms_norm, rope_tables, rotate,
+                                       softcap)
 from repro_torch.models.moe import init_moe_params, moe_mlp
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _LEFT_OUT = {
-    "vlm": "ROADMAP.md §1 item 16 (the VLM slice: M-RoPE, embedding "
-           "inputs)",
-    "audio": "ROADMAP.md §1 item 17 (the encoder-decoder slice)",
     "sharding": "ROADMAP.md §1 item 13 (distributed)",
     "training": "ROADMAP.md §1 item 18 (training and its backward "
                 "kernels)",
@@ -61,19 +75,7 @@ _LEFT_OUT = {
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for a config
-    outside the ported families (dense, MoE, SSM, hybrid)."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
-            f"see {_LEFT_OUT.get(cfg.family, _LEFT_OUT['training'])}")
-    if cfg.mrope or cfg.embedding_inputs:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and embedding inputs are not ported yet; "
-            f"see {_LEFT_OUT['vlm']}")
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet; see "
-            f"{_LEFT_OUT['audio']}")
+    knob the port leaves out."""
     if cfg.pad_heads:
         raise NotImplementedError(
             f"{cfg.name}: pad_heads={cfg.pad_heads} is a sharding knob of "
@@ -139,11 +141,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     def zeros():
         return torch.zeros(d, dtype=torch.float32, device=dev)
 
+    def proj():
+        return {"wq": normal(d, hq * hd), "wk": normal(d, hkv * hd),
+                "wv": normal(d, hkv * hd), "wo": normal(hq * hd, d)}
+
     def attn():
-        return {"ln1": zeros(),
-                "attn": {"wq": normal(d, hq * hd), "wk": normal(d, hkv * hd),
-                         "wv": normal(d, hkv * hd), "wo": normal(hq * hd, d)},
-                "ln2": zeros()}
+        return {"ln1": zeros(), "attn": proj(), "ln2": zeros()}
 
     def mlp():
         return {"w_gate": normal(d, cfg.d_ff), "w_up": normal(d, cfg.d_ff),
@@ -163,6 +166,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
                             "final_norm": zeros()}
     if not cfg.tie_embeddings:
         tree["lm_head"] = normal(d, cfg.vocab_size)
+    if cfg.is_encoder_decoder:
+        tree["encoder"] = {
+            "layers": [dict(attn(), mlp=mlp())
+                       for _ in range(cfg.num_encoder_layers)],
+            "final_norm": zeros()}
+        tree["layers"] = [dict(attn(), mlp=mlp(), ln_cross=zeros(),
+                               cross=proj())
+                          for _ in range(cfg.num_layers)]
+        return ParamTree(tree)
     tree["layers"] = [block(i) for i in range(cfg.num_layers)]
     if cfg.family == "hybrid" and cfg.hybrid_attn_every:
         tree["shared_block"] = dict(attn(), mlp=mlp())
@@ -204,7 +216,8 @@ def _attn_scale(cfg: ModelConfig) -> float:
 
 
 def _project_qkv(x, p, cfg: ModelConfig, rope):
-    """q, k, v [B, S, H, hd], q and k rotated by ``rope`` = (cos, sin)."""
+    """q, k, v [B, S, H, hd], q and k rotated by ``rope`` = (cos, sin),
+    the RoPE or M-RoPE tables of the pass (:func:`_rope`)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
@@ -284,6 +297,38 @@ def attention_block(x, p, cfg: ModelConfig, *, kind: str, mode: str,
     return out.reshape(b, s, -1) @ p["wo"], cache
 
 
+def cross_attention_block(x, p, cfg: ModelConfig, *, mode: str, cache,
+                          enc_out=None):
+    """An encoder-decoder layer's cross attention: q from ``x`` (no
+    rotation), keys and values from the encoder.  ``mode="prefill"``
+    computes them from ``enc_out`` [B, Se, D] (``enc_out @ wk``, ``@ wv``)
+    and writes them into ``cache["cross_k"]`` / ``["cross_v"]`` when a
+    cache is given; the attention runs through ``flash_attention`` with
+    ``causal=False`` (Sq may differ from Se).  ``mode="decode"`` attends
+    over the cached ones through ``decode_attention``, every slot valid
+    (``cache["cross_kv_pos"]``, ``arange(Se)``)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    scale = _attn_scale(cfg)
+    cap = cfg.attn_logit_softcap
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    if mode == "decode":
+        out = gqa_decode(q[:, 0], cache["cross_k"], cache["cross_v"],
+                         cache["cross_kv_pos"], scale=scale, logit_cap=cap)
+        return out.reshape(b, 1, -1) @ p["wo"]
+    if mode != "prefill":
+        raise NotImplementedError(
+            f"mode {mode!r}: see {_LEFT_OUT['training']}")
+    se = enc_out.shape[1]
+    k = (enc_out @ p["wk"]).reshape(b, se, cfg.num_kv_heads, hd)
+    v = (enc_out @ p["wv"]).reshape(b, se, cfg.num_kv_heads, hd)
+    if cache is not None:
+        cache["cross_k"].copy_(k)
+        cache["cross_v"].copy_(v)
+    out = attention(q, k, v, causal=False, logit_cap=cap, scale=scale)
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
 # --------------------------------------------------------------------------
 # block and stack
 # --------------------------------------------------------------------------
@@ -320,19 +365,53 @@ def _shared_block_apply(x, p, cfg: ModelConfig, *, mode, rope, cache):
     return x + mlp_block(h, p["mlp"], cfg.mlp_variant), cache
 
 
+def _decoder_block_apply(x, p, cfg: ModelConfig, *, mode, rope, cache,
+                         enc_out):
+    """An encoder-decoder's decoder layer: causal self-attention (cache
+    ``cache["self"]``), cross attention over the encoder, the MLP."""
+    self_cache = cache.get("self") if cache else None
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, self_cache = attention_block(h, p["attn"], cfg, kind="attn",
+                                    mode=mode, rope=rope, cache=self_cache)
+    x = x + y
+    h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+    x = x + cross_attention_block(h, p["cross"], cfg, mode=mode,
+                                  cache=cache, enc_out=enc_out)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_block(h, p["mlp"], cfg.mlp_variant), cache
+
+
+def _rope(cfg: ModelConfig, positions):
+    """The (cos, sin) tables of a pass: M-RoPE for ``positions`` [3, B, S]
+    when ``cfg.mrope``, else RoPE for [B, S]; None without positions."""
+    if positions is None:
+        return None
+    hd = cfg.resolved_head_dim
+    if cfg.mrope:
+        return mrope_tables(positions, hd, cfg.rope_theta,
+                            cfg.mrope_sections)
+    return rope_tables(positions, hd, cfg.rope_theta)
+
+
 def apply_stack(params, cfg: ModelConfig, x, *, mode, positions,
-                caches=None):
-    """x: [B, S, D] embeddings; positions: [B, S] (None for an
-    attention-free stack).  Returns (hidden, new_caches, aux_loss); the
-    aux loss is 0 here (see :func:`_block_apply`)."""
-    rope = (None if positions is None else
-            rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta))
+                caches=None, enc_out=None):
+    """x: [B, S, D] embeddings; positions: [B, S], or [3, B, S] for
+    M-RoPE (None for an attention-free stack); ``enc_out``: the encoder's
+    output [B, Se, D] at an encoder-decoder's prefill.  Returns (hidden,
+    new_caches, aux_loss); the aux loss is 0 here (see
+    :func:`_block_apply`)."""
+    rope = _rope(cfg, positions)
     new_caches: Dict[str, Any] = {}
     every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
     for i in range(cfg.num_layers):
         c = caches.get(f"layer_{i}") if caches else None
-        x, c, _ = _block_apply(x, params["layers"][i], cfg, i, mode=mode,
-                               rope=rope, cache=c)
+        p = params["layers"][i]
+        if cfg.is_encoder_decoder:
+            x, c = _decoder_block_apply(x, p, cfg, mode=mode, rope=rope,
+                                        cache=c, enc_out=enc_out)
+        else:
+            x, c, _ = _block_apply(x, p, cfg, i, mode=mode, rope=rope,
+                                   cache=c)
         if c is not None:
             new_caches[f"layer_{i}"] = c
         if every and (i + 1) % every == 0:
@@ -345,12 +424,37 @@ def apply_stack(params, cfg: ModelConfig, x, *, mode, positions,
     return x, new_caches, 0.0
 
 
+def encode(params, cfg: ModelConfig, enc_emb):
+    """The bidirectional encoder over precomputed frame embeddings
+    ``enc_emb`` [B, Se, D]: RoPE at ``arange(Se)``, self-attention through
+    ``flash_attention`` with ``causal=False`` and no cap, the MLP, and the
+    final encoder norm."""
+    x = enc_emb
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    scale = _attn_scale(cfg)
+    for p in params["encoder"]["layers"]:
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _project_qkv(h, p["attn"], cfg, rope)
+        out = attention(q, k, v, causal=False, scale=scale)
+        x = x + out.reshape(b, s, -1) @ p["attn"]["wo"]
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp_block(h, p["mlp"], cfg.mlp_variant)
+    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
 # --------------------------------------------------------------------------
 # heads and entry points
 # --------------------------------------------------------------------------
 
-def _embed(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens].to(DTYPES[cfg.dtype])
+def _embed(params, cfg: ModelConfig, inputs):
+    """Token ids [B, S] looked up in the table (in the model dtype), or,
+    for a model with ``embedding_inputs``, [B, S, D] embeddings used as
+    they are."""
+    if cfg.embedding_inputs and inputs.dim() == 3:
+        return inputs
+    return params["embed"][inputs].to(DTYPES[cfg.dtype])
 
 
 def _logits(params, cfg: ModelConfig, h):
@@ -367,21 +471,24 @@ def loss_fn(*args, **kwargs):
                               f"{_LEFT_OUT['training']}")
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device=None) -> Dict[str, Any]:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
+               *, device=None) -> Dict[str, Any]:
     """Preallocated decode cache (all zeros): a global attention layer
     holds ``max_len`` slots, a local layer ``min(window, max_len)``, a
     Mamba2 layer its conv tails and state, each of the hybrid's shared
-    block applications ``max_len`` slots."""
+    block applications ``max_len`` slots, an encoder-decoder layer
+    ``max_len`` slots of its own keys and ``enc_len`` of the encoder's."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = DTYPES[cfg.dtype]
     hd = cfg.resolved_head_dim
 
+    def zeros(c_len):
+        return torch.zeros((batch, c_len, cfg.num_kv_heads, hd), dtype=dt,
+                           device=dev)
+
     def kv(c_len):
-        shape = (batch, c_len, cfg.num_kv_heads, hd)
-        return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev)}
+        return {"k": zeros(c_len), "v": zeros(c_len)}
 
     caches: Dict[str, Any] = {"index": 0}
     for i in range(cfg.num_layers):
@@ -389,6 +496,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         if kind == "ssm":
             caches[f"layer_{i}"] = m2.init_ssm_cache(
                 batch, cfg.d_model, cfg.ssm, dt, device=dev)
+        elif cfg.is_encoder_decoder:
+            caches[f"layer_{i}"] = {"self": kv(max_len),
+                                    "cross_k": zeros(enc_len),
+                                    "cross_v": zeros(enc_len)}
         else:
             caches[f"layer_{i}"] = kv(min(cfg.window_size, max_len)
                                       if kind == "local_attn" else max_len)
@@ -400,25 +511,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def clone_cache(caches: Dict[str, Any]) -> Dict[str, Any]:
     """A copy of a decode cache that can be decoded into independently."""
-    return {name: (dict((k, t.clone()) for k, t in c.items())
-                   if isinstance(c, dict) else c)
-            for name, c in caches.items()}
+    if isinstance(caches, dict):
+        return {name: clone_cache(c) for name, c in caches.items()}
+    return caches.clone() if isinstance(caches, torch.Tensor) else caches
 
 
 def prefill(params, cfg: ModelConfig, batch, max_len: int, *,
             constrain=None, ep=None):
     """Run the full prompt; return (last-position logits [B, V], filled
-    cache).  ``batch``: {"tokens": [B, S] int, optional "positions"}."""
+    cache).  ``batch``: {"tokens": [B, S] int or "embeddings": [B, S, D],
+    optional "positions" ([B, S], or [3, B, S] for M-RoPE), and for an
+    encoder-decoder "enc_emb": [B, Se, D]}."""
     check_supported(cfg)
     refuse_sharding(constrain, ep)
-    x = _embed(params, cfg, batch["tokens"])
+    enc_out = (encode(params, cfg, batch["enc_emb"])
+               if cfg.is_encoder_decoder else None)
+    x = _embed(params, cfg, batch["tokens"] if "tokens" in batch
+               else batch["embeddings"])
     b, s = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None and not cfg.attention_free:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    caches = init_cache(cfg, b, max_len, device=x.device)
+        if cfg.mrope:
+            positions = positions[None].expand(3, b, s)
+    caches = init_cache(cfg, b, max_len,
+                        enc_out.shape[1] if enc_out is not None else 0,
+                        device=x.device)
     h, new_caches, _ = apply_stack(params, cfg, x, mode="prefill",
-                                   positions=positions, caches=caches)
+                                   positions=positions, caches=caches,
+                                   enc_out=enc_out)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, h[:, -1:])
     new_caches["index"] = s
@@ -433,9 +554,13 @@ def _window(cfg: ModelConfig, name: str) -> int:
     return 0
 
 
+_STEP_KEYS = ("index", "kv_pos", "cross_kv_pos")
+
+
 def decode_step(params, cfg: ModelConfig, caches, tokens, *,
                 constrain=None, ep=None):
-    """One decode step.  tokens: [B, 1] int.  Writes the new keys and the
+    """One decode step.  tokens: [B, 1] int (or [B, 1, D] embeddings for
+    a model with ``embedding_inputs``).  Writes the new keys and the
     Mamba2 states into ``caches`` in place; returns (logits [B, V], caches
     with index + 1)."""
     check_supported(cfg)
@@ -443,26 +568,50 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, *,
     x = _embed(params, cfg, tokens)
     b = x.shape[0]
     idx = int(caches["index"])
-    positions = (None if cfg.attention_free else
-                 torch.full((b, 1), idx, dtype=torch.int32, device=x.device))
-    # one kv_pos per (cache length, window), shared by the layers
+    positions = None
+    if not cfg.attention_free:
+        positions = torch.full((3, b, 1) if cfg.mrope else (b, 1), idx,
+                               dtype=torch.int32, device=x.device)
+    # one kv_pos per (cache length, window), shared by the layers; the
+    # cross attention's (every slot valid) one per encoder length
     kv_pos: Dict[tuple, torch.Tensor] = {}
+
+    def positions_of(c_len, window):
+        key = (c_len, window)
+        if key not in kv_pos:
+            kv_pos[key] = decode_positions(idx, c_len, window, x.device)
+        return kv_pos[key]
+
+    def cross_positions(c_len):
+        key = (c_len, "cross")
+        if key not in kv_pos:
+            kv_pos[key] = torch.arange(c_len, dtype=torch.int32,
+                                       device=x.device)
+        return kv_pos[key]
+
     run_caches = {}
     for name, c in caches.items():
         if name == "index":
             continue
-        if "k" not in c:                     # a Mamba2 layer's cache
+        if "self" in c:                      # an encoder-decoder layer
+            sc = c["self"]
+            run_caches[name] = dict(
+                c, self=dict(sc, index=idx,
+                             kv_pos=positions_of(sc["k"].shape[1], 0)),
+                cross_kv_pos=cross_positions(c["cross_k"].shape[1]))
+        elif "k" in c:
+            run_caches[name] = dict(c, index=idx, kv_pos=positions_of(
+                c["k"].shape[1], _window(cfg, name)))
+        else:                                # a Mamba2 layer's cache
             run_caches[name] = c
-            continue
-        key = (c["k"].shape[1], _window(cfg, name))
-        if key not in kv_pos:
-            kv_pos[key] = decode_positions(idx, *key, device=x.device)
-        run_caches[name] = dict(c, index=idx, kv_pos=kv_pos[key])
     h, new_caches, _ = apply_stack(params, cfg, x, mode="decode",
                                    positions=positions, caches=run_caches)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, h)
-    out = {name: {k: t for k, t in c.items() if k not in ("index", "kv_pos")}
-           for name, c in new_caches.items()}
+
+    def strip(c):
+        return {k: strip(t) if isinstance(t, dict) else t
+                for k, t in c.items() if k not in _STEP_KEYS}
+    out = {name: strip(c) for name, c in new_caches.items()}
     out["index"] = idx + 1
     return logits[:, 0], out

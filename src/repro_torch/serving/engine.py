@@ -8,8 +8,9 @@ an ActionManifest run by the Raptor engine (``core/scheduler.py``).  With
 threads, with per-member latency jitter standing in for independent
 hosts: the first finisher wins and its peers are pre-empted.  The model
 runs on ``device``, the CUDA card unless the caller asks for the CPU;
-prefill attention goes through the ``flash_attention`` kernel, decode
-attention through ``decode_attention``, expert MLPs through
+prefill attention (an encoder's and a decoder's cross attention too)
+goes through the ``flash_attention`` kernel, decode attention (cross
+attention too) through ``decode_attention``, expert MLPs through
 ``expert_matmul`` and prefill Mamba2 scans through ``ssd_scan``.  PyTorch has no jit, so
 ``warmup`` pays the kernels' first build and load instead of a compile,
 and timed windows end with ``torch.cuda.synchronize()`` on the card.
@@ -27,7 +28,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.manifest import ActionManifest, FunctionSpec
 from repro_torch.core.scheduler import Flight
-from repro_torch.models.transformer import clone_cache
+from repro_torch.models.transformer import DTYPES, clone_cache
 from repro_torch.serving.step import (greedy_sample, make_decode_step,
                                       make_prefill_step)
 from repro_torch.sim.streaming import StreamingScheduler, run_open_load
@@ -309,10 +310,34 @@ class SchedulerService:
 
 def demo_requests(cfg: ModelConfig, batch: int, prompt_len: int, seed=0, *,
                   device=None) -> Dict[str, Any]:
-    """Random prompts, the same numpy draws as the reference's
-    ``demo_requests``: {"tokens": [batch, prompt_len] int32} on
-    ``device`` (the card unless given)."""
+    """Random prompts, the same numpy draws in the same order as the
+    reference's ``demo_requests``, on ``device`` (the card unless given):
+    {"tokens": [batch, prompt_len] int32}, or for a model with
+    ``embedding_inputs`` {"embeddings": [batch, prompt_len, D]}, N(0, 1)
+    in the model dtype times 0.02 (the product rounded once in that
+    dtype, as the reference's); an encoder-decoder's "enc_emb" of the
+    same shape, drawn next; M-RoPE's "positions" [3, batch, prompt_len]
+    int32, ``arange`` in every stream."""
     rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
-    return {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
-                                      device=resolve_device(device))}
+    dev = resolve_device(device)
+    dt = DTYPES[cfg.dtype]
+
+    def embeddings():
+        x = torch.from_numpy(rng.standard_normal(
+            (batch, prompt_len, cfg.d_model))).to(dt)
+        return (x * torch.tensor(0.02, dtype=dt)).to(dev)
+
+    out: Dict[str, Any] = {}
+    if cfg.embedding_inputs:
+        out["embeddings"] = embeddings()
+    else:
+        out["tokens"] = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
+            dtype=torch.int32, device=dev)
+    if cfg.is_encoder_decoder:
+        out["enc_emb"] = embeddings()
+    if cfg.mrope:
+        out["positions"] = torch.arange(
+            prompt_len, dtype=torch.int32, device=dev)[None, None].expand(
+                3, batch, prompt_len).contiguous()
+    return out

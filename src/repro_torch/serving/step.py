@@ -30,10 +30,12 @@ def make_decode_step(cfg: ModelConfig, constrain=None, ep=None):
     return decode_step
 
 
-def cache_shape(cfg: ModelConfig, batch: int, max_len: int):
+def cache_shape(cfg: ModelConfig, batch: int, max_len: int,
+                enc_len: int = 0):
     """The decode cache's tensors on the ``meta`` device: shapes and
-    dtypes, no allocation."""
-    return tfm.init_cache(cfg, batch, max_len, device="meta")
+    dtypes, no allocation (``enc_len``: an encoder-decoder's encoder
+    length)."""
+    return tfm.init_cache(cfg, batch, max_len, enc_len, device="meta")
 
 
 def greedy_sample(logits):

@@ -185,7 +185,8 @@ def test_scheduling_kernels_are_bitwise_repeatable(cuda):
 
 
 # b, hq, hkv, sq, sk, d, causal, window, cap: the reference kernel tests'
-# cases, the head dims the kernel takes, ragged tiles and gemma2-9b's heads
+# cases, the head dims the kernel takes, ragged tiles, gemma2-9b's,
+# qwen2-vl-2b's and seamless-m4t-medium's heads
 FLASH_CASES = [
     (1, 1, 1, 128, 128, 64, True, 0, 0.0),
     (2, 4, 2, 256, 256, 64, True, 0, 0.0),
@@ -198,8 +199,15 @@ FLASH_CASES = [
     (2, 4, 4, 77, 77, 96, True, 0, 0.0),
     (1, 16, 8, 320, 320, 256, True, 128, 50.0),
     (1, 16, 8, 200, 200, 256, True, 0, 50.0),
+    # qwen2-vl-2b's heads (a group of 6 at D=128)
+    (1, 12, 2, 256, 256, 128, True, 0, 0.0),
+    (2, 12, 2, 200, 200, 128, True, 0, 0.0),
+    # seamless-m4t-medium's cross attention: non-causal, Sq != Sk
+    (1, 16, 16, 100, 300, 64, False, 0, 0.0),
+    (2, 16, 16, 256, 77, 64, False, 0, 0.0),
 ]
-# b, hq, hkv, c, d, valid, cap: the reference's cases, a ring, gemma2-9b's
+# b, hq, hkv, c, d, valid, cap: the reference's cases, a ring, gemma2-9b's,
+# qwen2-vl-2b's and seamless-m4t-medium's
 DECODE_CASES = [
     (1, 1, 1, 256, 64, None, 0.0),
     (2, 8, 2, 512, 64, None, 0.0),
@@ -210,6 +218,10 @@ DECODE_CASES = [
     (2, 16, 8, 4096, 256, "ring", 50.0),
     (3, 6, 2, 1000, 96, "ring", 0.0),
     (1, 8, 8, 37, 32, None, 0.0),
+    # qwen2-vl-2b's decode (a group of 6 at D=128); seamless-m4t-medium's
+    # cross cache (every slot valid)
+    (2, 12, 2, 4128, 128, 4100, 0.0),
+    (2, 16, 16, 777, 64, None, 0.0),
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
