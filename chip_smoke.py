@@ -21,7 +21,10 @@ d_model 1536, 12 q / 2 kv heads of 128, M-RoPE sections 16/24/24, vocab
 151,936; prompts of 4,096 embeddings); the encoder-decoder path,
 seamless-m4t-medium at full width (12 encoder and 12 decoder layers,
 d_model 1024, 16 / 16 heads of 64, vocab 256,206; 4,096 decoder
-embeddings over 4,096 encoder frames).
+embeddings over 4,096 encoder frames).  The training path: gemma-2b
+trained at full width (18 layers, d_model 2048, 8 q / 1 kv heads of 256,
+ff 16,384, vocab 256,000, tied; bf16 weights, float32 AdamW moments) on
+the synthetic data of batches of 2 x 2,048 tokens, by ``launch/train.py``.
 
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build all six kernels (one nvcc per source, in parallel), timed, with
@@ -84,8 +87,10 @@ embeddings over 4,096 encoder frames).
    per decode step; the flight; every ssd_scan call of the wiring run
    within 2e-4 of its plain version, every attention call within the
    bf16 bar; the float32 logits as phase 12's;
-14. fault engine: ``QueueFlightSim`` in fault mode at phase 5's size
-   (keygen @ high, 15 workers / 3 AZs, 10,658 jobs x 32 trials) under one
+14. fault engine: ``QueueFlightSim`` in fault mode at phase 5's width
+   (keygen @ high, 15 workers / 3 AZs, 32 trials) on the first 900 s of
+   its stream (5,329 jobs: the whole stream, launch-bound on the host,
+   took ~570 s of a 1,049 s smoke on an H100 machine) under one
    correlated brownout process (fault_sweep's: up 24 s, down 6 s, service
    x3), degraded errors (0.05) and worker crashes (every ~30 s, 200 ms
    outages), tables of 256 cycles (coverage checked against twice the
@@ -144,7 +149,34 @@ embeddings over 4,096 encoder frames).
    encoder's input does; flash_attention at the
    cross shape (16 / 16 heads of 64, Sq 1,024, Sk 4,096) beside SDPA
    (decode_attention at both paths' decode shapes is timed in phase 8);
-20. one JSON line listing each kernel (launches on its path, error
+20. training: (a) each training kernel's autograd Function (the kernel
+   forward; ``attention_vjp``, ``gmm_vjp`` -- two more kernel launches --
+   and ``ssd_vjp`` backward) against float32 ``torch.autograd.grad``
+   through its plain version, within the bf16 bar of ``TOL`` with atol
+   scaled to each gradient's max |element|: flash_attention at
+   gemma-2b's training shape (B=2, 8 / 1 heads of 256, S=2,048, causal),
+   timed forward and backward beside SDPA and its bound, at a capped,
+   windowed shape and a cross attention (Sq != Sk); expert_matmul at
+   granite-moe-3b-a800m's training capacity (4,096 tokens, C=1,024);
+   ssd_scan at zamba2-1.2b's heads (64 of 64, state 64, chunk 256,
+   S=2,048), with cotangents for y and the final state; (b) the wiring
+   in float32 at full width and cut depth (gemma-2b and
+   granite-moe-3b-a800m with 2 layers, zamba2-1.2b with 6 Mamba2 layers
+   and its shared block): the loss within 1e-5 x |loss| and every
+   gradient leaf within 1e-3 x its max |grad| of the same model with the
+   kernels swapped for their plain versions (the MoE's expert choices
+   replayed); (c) ``launch/train.py`` trains gemma-2b at full width (18
+   layers, 2.51 B parameters in bf16, float32 moments; B=2, S=2,048, 6
+   steps, pod 1 failed at step 3): per step the loss, grad norm, wall
+   ms, tokens/s, share of the bf16 peak, exactly 18 flash_attention
+   launches; peak memory; the trained weights served (``generate`` and a
+   flight of 2, equal tokens); a reduced bf16 state's checkpoint through
+   npz and back to cuda, bitwise; (d) granite-moe-3b-a800m and
+   zamba2-1.2b at full width and depth, two steps each with remat, the
+   loss finite and exactly 64 flash_attention and 384 expert_matmul
+   launches (granite) or 76 ssd_scan and 6 flash_attention launches
+   (zamba2) per step;
+21. one JSON line listing each kernel (launches on its path, error
    against the plain version, times, bound, library time; for
    ``maxplus_scan`` also its launches on the fault paths; for both
    scheduler kernels their launches on the sweep path; for the two
@@ -155,8 +187,9 @@ embeddings over 4,096 encoder frames).
    scheduler's the one tape that the engine has just written; ``loop_ms``
    (``maxplus_scan``, ``decode_attention``, ``ssd_scan``) is the pace of
    an event-timed loop of calls, which the host sets for short kernels,
-   and ``plain_ms`` is timed so too;
-21. the last line: ``{"ok": true, "device": {...}}``.
+   and ``plain_ms`` is timed so too; for the three training kernels
+   also their launches per training step and their backward times;
+22. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.  A copy
@@ -225,8 +258,21 @@ FAULT_POLICY = dict(timeout_ms=6_000.0, max_retries=1, backoff_ms=50.0,
 # stock's routes are compared on a stream of FAULT_CHECK_JOBS jobs
 FAULT_STOCK_BLOCK = 256
 FAULT_CHECK_JOBS = 2000
+# the fault engine's stream: the first 900 s of fig6's (the phase is
+# launch-bound on the host; at 1,800 s it took ~570 s of a 1,049 s smoke
+# on an H100 80GB HBM3 machine at 700 W, whose host built the kernels
+# 1.2-1.3x slower than other such machines)
+FAULT_JOBS = JOBS // 2
 OPEN_LOOP_TRIALS = 40_000
 ONE_AZ_SEEDS = 16            # scalar-oracle streams beside fig6's 1-AZ point
+# the training path: gemma-2b trained at full width by launch/train.py
+# (B=2, S=2,048, 6 steps, pod 1 failed at step 3), then served with
+# DECODE_STEPS steps on prompts of TRAIN_SERVE_PROMPT; the float32 wiring
+# run on B=WIRING_TRAIN_BATCH sequences of TRAIN_SEQ
+TRAIN_ARCH = "gemma-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_FAIL_AT = 2, 2048, 6, 3
+TRAIN_SERVE_PROMPT = 512
+WIRING_TRAIN_BATCH = 1
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
@@ -313,7 +359,7 @@ def causal_pairs(s: int, window: int) -> int:
     return sum(min(i + 1, w) for i in range(s))
 
 
-def fault_engine_phase(dev, card, jobs=JOBS, trials=TRIALS,
+def fault_engine_phase(dev, card, jobs=FAULT_JOBS, trials=TRIALS,
                        check_jobs=FAULT_CHECK_JOBS) -> dict:
     """Phase 14: ``QueueFlightSim`` in fault mode on the card.  Raptor
     at full width through the K2 route (log-depth,
@@ -1062,6 +1108,509 @@ def encdec_phase(dev, card) -> dict:
     return out
 
 
+def grad_bar(want) -> tuple:
+    """The bf16 bar of ``TOL`` with atol and the cap scaled to the
+    gradient's max |element|."""
+    atol, rtol, cap = TOL["bfloat16"]
+    top = float(want.abs().max())
+    return (atol * top, rtol, cap * top)
+
+
+def grad_check(name, fn, plain, leaves, cot, dtype) -> tuple:
+    """``fn``'s gradient (its autograd Function: the kernel forward, the
+    port's backward) on ``leaves`` cast to ``dtype``, against float32
+    ``torch.autograd.grad`` through ``plain`` on the same inputs, each
+    within :func:`grad_bar`.  Returns (max abs err, max bar share)."""
+    import torch
+    ins = [t.to(dtype).requires_grad_(True) for t in leaves]
+    cots = tuple(c.to(dtype) for c in cot)
+    got = torch.autograd.grad(fn(*ins), ins, cots)
+    ref = [t.detach().float().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(plain(*ref), ref,
+                               tuple(c.float() for c in cots))
+    parts = [close(g.float(), w, f"{name} d{i}", grad_bar(w))
+             for i, (g, w) in enumerate(zip(got, want))]
+    return max(p[0] for p in parts), max(p[1] for p in parts)
+
+
+def reset_counts() -> dict:
+    """The training kernels' wrappers, their launch counts set to 0."""
+    from repro_torch.launch.train import KERNELS
+    for fn in KERNELS.values():
+        fn.launches = 0
+    return KERNELS
+
+
+def kernel_grads(dev, card) -> dict:
+    """Phase 20 (a): each training Function's gradient against float32
+    autograd through its plain version, at the training shapes, with the
+    forward's and the backward's device times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (
+        attention_plain, attention_vjp, mha)
+    from repro_torch.kernels.moe_gmm.ops import (expert_matmul_plain, gmm,
+                                                 gmm_vjp)
+    from repro_torch.kernels.ssd_scan.ops import ssd, ssd_plain, ssd_vjp
+    from repro_torch.launch.bench_kernels import graph_ms, loop_ms
+    from repro_torch.models import transformer as tfm
+    gen = torch.Generator(device=dev).manual_seed(29)
+    bf16 = torch.bfloat16
+    out = {}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    # ---- flash_attention: gemma-2b's training shape, then a capped,
+    # windowed one (gemma2-9b's heads) and a cross attention (seamless's)
+    rows = []
+    g2 = get_config(TRAIN_ARCH)
+    g9, sm = get_config(ARCH), get_config(ENCDEC_ARCH)
+    for label, c_, sq, sk, causal, window, cap in (
+            (TRAIN_ARCH, g2, TRAIN_SEQ, TRAIN_SEQ, True, 0, 0.0),
+            (f"{ARCH}-like, window 1024, cap 50", g9, TRAIN_SEQ, TRAIN_SEQ,
+             True, 1024, 50.0),
+            (f"{ENCDEC_ARCH} cross", sm, TRAIN_SEQ, TRAIN_SEQ // 4, False,
+             0, 0.0)):
+        hq, hkv, d = c_.num_heads, c_.num_kv_heads, c_.resolved_head_dim
+        opts = dict(causal=causal, window=window, logit_cap=cap,
+                    scale=tfm._attn_scale(c_))
+        # the model's [B, S, H, D] tensors, handed over as views
+        q = randn(TRAIN_BATCH, sq, hq, d)
+        k = randn(TRAIN_BATCH, sk, hkv, d)
+        v = randn(TRAIN_BATCH, sk, hkv, d)
+        dout = randn(TRAIN_BATCH, sq, hq, d)
+
+        def kern(q_, k_, v_):
+            return mha(q_.transpose(1, 2), k_.transpose(1, 2),
+                       v_.transpose(1, 2), **opts)
+
+        def plain(q_, k_, v_):
+            return attention_plain(q_.transpose(1, 2), k_.transpose(1, 2),
+                                   v_.transpose(1, 2), **opts)
+        err, share = grad_check(f"flash_attention {label}", kern, plain,
+                                (q, k, v), (dout.transpose(1, 2),), bf16)
+        row = {"shape": f"{label}: B={TRAIN_BATCH}, {hq}/{hkv} heads of "
+                        f"{d}, Sq={sq}, Sk={sk}, "
+                        f"{'causal' if causal else 'non-causal'}",
+               "max_abs_err": err, "bar_share": share}
+        if label == TRAIN_ARCH:
+            qb, kb, vb, db = (t.to(bf16).transpose(1, 2)
+                              for t in (q, k, v, dout))
+            with torch.no_grad():
+                row["ms"] = graph_ms(lambda: mha(qb, kb, vb, **opts),
+                                     [()], 10)
+                row["backward_ms"] = graph_ms(lambda: attention_vjp(
+                    qb, kb, vb, db, **opts), [()], 5)
+            qc, kc, vc = (t.contiguous().requires_grad_(True)
+                          for t in (qb, kb, vb))
+            dc = db.contiguous()
+            with torch.no_grad():
+                row["library_ms"] = graph_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qc, kc, vc, is_causal=True, scale=opts["scale"],
+                        enable_gqa=True), [()], 10)
+
+            def sdpa_train():
+                o = F.scaled_dot_product_attention(
+                    qc, kc, vc, is_causal=True, scale=opts["scale"],
+                    enable_gqa=True)
+                torch.autograd.grad(o, (qc, kc, vc), dc)
+            row["library_train_ms"] = loop_ms(sdpa_train, [()], 5)
+            pairs = TRAIN_BATCH * hq * causal_pairs(sq, 0)
+            nbytes = 2 * TRAIN_BATCH * d * (2 * sq * hq + 2 * sk * hkv)
+            ops_ms = 1e3 * 4 * d * pairs / BF16_OPS_PER_S
+            bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+            row["bound_ms"] = max(ops_ms, bytes_ms)
+            row["bound_by"] = "operations" if ops_ms >= bytes_ms \
+                else "bytes"
+            # the backward: five products (the scores again, dV, dP, dQ,
+            # dK); q, k, v and dO read, dQ, dK and dV written
+            row["backward_bound_ms"] = max(
+                2.5 * ops_ms, 2e3 * TRAIN_BATCH * d
+                * (3 * sq * hq + 4 * sk * hkv) / HBM_BYTES_PER_S)
+            del qb, kb, vb, db, qc, kc, vc, dc
+        rows.append(row)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    out["flash_attention"] = rows
+    k3 = rows[0]
+    say(f"phase 20 flash_attention gradients (bf16 against float32 "
+        f"autograd through the plain version): "
+        + "; ".join(f"{r['shape']}: max abs err {r['max_abs_err']:.4g}, "
+                    f"{r['bar_share']:.3f} of the bar" for r in rows)
+        + f"; at {TRAIN_ARCH}'s shape forward {k3['ms']:.4f} ms, backward "
+        f"(attention_vjp, PyTorch) {k3['backward_ms']:.4f} ms; bound "
+        f"{k3['bound_ms']:.4f} / {k3['backward_bound_ms']:.4f} ms "
+        f"({k3['bound_by']}); SDPA forward {k3['library_ms']:.4f} ms, forward + "
+        f"backward {k3['library_train_ms']:.4f} ms (event-timed loop) "
+        f"[{card}]")
+
+    # ---- expert_matmul at granite's training capacity: B x S = 4,096
+    # tokens, C = 1,024; the gate/up and the down products
+    from repro_torch.models.moe import moe_capacity
+    gm = get_config(MOE_ARCH)
+    e, d, f = gm.moe.num_experts, gm.d_model, gm.moe.expert_ff
+    c = moe_capacity(TRAIN_BATCH * TRAIN_SEQ, gm.moe)
+    rows = []
+    for dd, ff in ((d, f), (f, d)):
+        buf = randn(e, c, dd)
+        w = randn(e, dd, ff, scale=0.02)
+        dout = randn(e, c, ff)
+        err, share = grad_check(f"expert_matmul {dd}x{ff}", gmm,
+                                expert_matmul_plain, (buf, w), (dout,),
+                                bf16)
+        bb, wb, db = buf.to(bf16), w.to(bf16), dout.to(bf16)
+        n0 = gmm.launches
+        with torch.no_grad():
+            gmm_vjp(bb, wb, db)
+        if gmm.launches != n0 + 2:
+            raise AssertionError("gmm_vjp did not launch the kernel twice")
+        ops_ms = 2e3 * e * c * dd * ff / BF16_OPS_PER_S
+        bytes_ms = 2e3 * (e * c * dd + e * dd * ff + e * c * ff) \
+            / HBM_BYTES_PER_S
+        rows.append({
+            "shape": f"E={e}, C={c}, D={dd}, F={ff}", "max_abs_err": err,
+            "bar_share": share,
+            "ms": graph_ms(lambda: gmm(bb, wb), [()], 10),
+            "backward_ms": graph_ms(lambda: gmm_vjp(bb, wb, db), [()], 10),
+            "library_ms": graph_ms(lambda: torch.bmm(bb, wb), [()], 10),
+            "bound_ms": max(ops_ms, bytes_ms),
+            # two products of the same size; buf, w and dout read, dbuf
+            # and dw written
+            "backward_bound_ms": max(
+                2 * ops_ms, 2e3 * (2 * e * c * dd + 2 * e * dd * ff
+                                   + e * c * ff) / HBM_BYTES_PER_S),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+        del buf, w, dout, bb, wb, db
+    out["expert_matmul"] = rows
+    say("phase 20 expert_matmul gradients (bf16; the backward is two "
+        "kernel launches): " + "; ".join(
+            f"{r['shape']}: max abs err {r['max_abs_err']:.4g}, "
+            f"{r['bar_share']:.3f} of the bar, forward {r['ms']:.4f} ms, "
+            f"backward {r['backward_ms']:.4f} ms (bmm {r['library_ms']:.4f}"
+            f" ms; bound {r['bound_ms']:.4f} / {r['backward_bound_ms']:.4f}"
+            f" ms)" for r in rows) + f" [{card}]")
+
+    # ---- ssd_scan at zamba2's shape
+    zc = get_config(HYBRID_ARCH)
+    ssm = zc.ssm
+    h = ssm.expand * zc.d_model // ssm.head_dim
+    p, n, g = ssm.head_dim, ssm.state_dim, ssm.ngroups
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    x = randn(b, s, h, p)
+    dt = F.softplus(randn(b, s, h)) * 0.1
+    A = -torch.exp(randn(h, scale=0.3))
+    B = randn(b, s, g, n, scale=0.5)
+    C = randn(b, s, g, n, scale=0.5)
+    dy, dst = randn(b, s, h, p), randn(b, h, p, n)
+    chunk = ssm.chunk_size
+    err, share = grad_check(
+        "ssd_scan", lambda *a: ssd(*a, chunk=chunk),
+        lambda *a: ssd_plain(*a, chunk=chunk), (x, dt, A, B, C), (dy, dst),
+        torch.float32)
+    with torch.no_grad():
+        fwd = graph_ms(lambda: ssd(x, dt, A, B, C, chunk=chunk), [()], 10)
+        bwd = graph_ms(lambda: ssd_vjp(x, dt, A, B, C, dy, dst,
+                                       chunk=chunk), [()], 5)
+    out["ssd_scan"] = {"shape": f"B={b}, S={s}, H={h}, P={p}, N={n}, "
+                                f"G={g}, chunk {chunk}",
+                       "max_abs_err": err, "bar_share": share, "ms": fwd,
+                       "backward_ms": bwd}
+    say(f"phase 20 ssd_scan gradients (float32, cotangents for y and the "
+        f"final state; {out['ssd_scan']['shape']}): max abs err {err:.4g}, "
+        f"{share:.3f} of the bar; forward {fwd:.4f} ms, backward (ssd_vjp, "
+        f"PyTorch) {bwd:.4f} ms [{card}]")
+    del x, dt, A, B, C, dy, dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_wiring(dev, card) -> dict:
+    """Phase 20 (b): in float32 at full width and cut depth, the loss and
+    every gradient leaf through the kernels against the same model with
+    the kernels swapped for their plain versions (``mock.patch.object``,
+    as ``lm_path`` does).  An MoE's plain run replays the kernel run's
+    expert choices, so that a router tie broken the other way by a
+    float32 rounding does not move a token to another expert; the tokens
+    whose choice would have differed are counted."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.step import batch_to
+    entries = kernel_entries()
+    out = {}
+    for name, layers in ((TRAIN_ARCH, 2), (MOE_ARCH, 2), (HYBRID_ARCH, 6)):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(name), num_layers=layers,
+                                  dtype="float32")
+        params = tfm.init_params(cfg, 0, device=dev).requires_grad_(True)
+        leaves = list(params.parameters())
+        batch = batch_to(cfg, make_batch(cfg, ShapeConfig(
+            "wiring", TRAIN_SEQ, WIRING_TRAIN_BATCH, "train"), 0), dev)
+        chosen, flips = [], [0]
+        real_top_k = moe.top_k
+
+        def recording(x, k):
+            vals, idx = real_top_k(x, k)
+            chosen.append(idx)
+            return vals, idx
+
+        def replaying(x, k):
+            idx = chosen[len(chosen) - replaying.left]
+            replaying.left -= 1
+            mine = real_top_k(x, k)[1].sort(-1).values
+            flips[0] += int((mine != idx.sort(-1).values).any(-1).sum())
+            return x.gather(-1, idx), idx
+
+        def run(swap):
+            with contextlib.ExitStack() as swaps:
+                for mod, attr, fn in swap:
+                    swaps.enter_context(mock.patch.object(mod, attr, fn))
+                loss, _ = tfm.loss_fn(params, cfg, batch)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            return loss.detach(), grads
+
+        kernels = reset_counts()
+        loss_k, g_k = run([(moe, "top_k", recording)])
+        launches = {k: fn.launches for k, fn in kernels.items()
+                    if fn.launches}
+        replaying.left = len(chosen)
+        loss_p, g_p = run([(mod, attr, plain) for mod, attr, _, plain, _ in
+                           entries.values()] + [(moe, "top_k", replaying)])
+        loss_err = abs(float(loss_k) - float(loss_p))
+        share = 0.0
+        for (pname, _), gk, gp in zip(params.named_parameters(), g_k, g_p):
+            top = float(gp.abs().max())
+            err = float((gk - gp).abs().max())
+            if not (bool(torch.isfinite(gk).all()) and err <= 1e-3 * top):
+                raise AssertionError(
+                    f"{name} float32 wiring: d{pname} through the kernels "
+                    f"is {err} from the plain versions' (bar 1e-3 x "
+                    f"{top})")
+            share = max(share, err / (1e-3 * top) if top else 0.0)
+        if not loss_err <= 1e-5 * abs(float(loss_p)):
+            raise AssertionError(f"{name} float32 wiring: loss {loss_k} "
+                                 f"vs {loss_p}")
+        out[name] = {"layers": layers, "loss": float(loss_k),
+                     "loss_abs_err": loss_err, "grad_bar_share": share,
+                     "launches": launches, "router_flips": flips[0],
+                     "wall_s": time.perf_counter() - t0}
+        say(f"phase 20 wiring float32 {name} ({layers} layers, B="
+            f"{WIRING_TRAIN_BATCH}, S={TRAIN_SEQ}): loss {float(loss_k):.6f}"
+            f", kernels vs plain |dloss| {loss_err:.3g}; every gradient "
+            f"leaf within {share:.3f} of 1e-3 x its max |grad| at worst; "
+            f"kernel launches {launches}; tokens whose expert choice the "
+            f"plain run would have flipped: {flips[0]} [{card}]")
+        del params, leaves, batch, g_k, g_p, chosen
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def trainer_run(dev, card) -> dict:
+    """Phase 20 (c): ``launch/train.py`` trains gemma-2b at full width
+    with a simulated pod failure; its weights are served (``generate``
+    and a flight of 2, equal tokens); a reduced bf16 state's checkpoint
+    round-trips on the card bitwise."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch import train
+    from repro_torch.serving.engine import (ServeConfig, ServingEngine,
+                                            demo_requests)
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.step import init_train_state, make_train_step
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    kernels = reset_counts()
+    res = {}
+    t0 = time.perf_counter()
+    rc = train.main(["--arch", TRAIN_ARCH, "--device", dev.type,
+                     "--steps", str(TRAIN_STEPS),
+                     "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                     "--simulate-failure-at", str(TRAIN_FAIL_AT)],
+                    result=res)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state, hist, cfg = res["state"], res["history"], res["cfg"]
+    n_par = sum(p.numel() for p in state["params"].parameters())
+    if rc != 0 or len(hist) != TRAIN_STEPS:
+        raise AssertionError(f"the trainer returned {rc} after "
+                             f"{len(hist)} steps")
+    for rec in hist:
+        rec["peak_share"] = 6 * n_par * tokens / (rec["ms"] / 1e3) \
+            / BF16_OPS_PER_S
+        say(f"phase 20 train {TRAIN_ARCH} step {rec['step']}: loss "
+            f"{rec['loss']:.4f}, grad norm {rec['grad_norm']:.4f}, "
+            f"{rec['ms']:.1f} ms, {rec['tokens_per_s']:.0f} tokens/s, "
+            f"{rec['peak_share']:.4f} of the bf16 peak (6 x {n_par:,} x "
+            f"{tokens} / step / 989e12), launches {rec['launches']}"
+            + (" (pod 1 failed: its samples weigh 0)"
+               if rec["step"] == TRAIN_FAIL_AT else "") + f" [{card}]")
+        if not math.isfinite(rec["loss"]) or \
+                rec["launches"]["flash_attention"] != cfg.num_layers or \
+                rec["launches"]["expert_matmul"] or \
+                rec["launches"]["ssd_scan"]:
+            raise AssertionError(f"{TRAIN_ARCH} step {rec['step']}: loss "
+                                 f"{rec['loss']}, launches "
+                                 f"{rec['launches']}")
+    if launches["flash_attention"] != TRAIN_STEPS * cfg.num_layers:
+        raise AssertionError(f"the trainer launched {launches}")
+    warm = [r["ms"] for r in hist[1:]]
+    say(f"phase 20 train {TRAIN_ARCH}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {n_par:,} parameters ({cfg.dtype}, moments "
+        f"{cfg.optimizer_state_dtype}), B={TRAIN_BATCH}, S={TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps in {wall:.1f} s wall (init included); warm "
+        f"steps mean {sum(warm) / len(warm):.1f} ms, peak memory "
+        f"{peak_gb:.2f} GB; launches {launches} [{card}]")
+
+    # serve the trained weights: generate and a flight of 2
+    t0 = time.perf_counter()
+    req = demo_requests(cfg, LM_BATCH, TRAIN_SERVE_PROMPT, seed=0,
+                        device=dev)
+    eng = ServingEngine(cfg, state["params"], ServeConfig(
+        max_len=TRAIN_SERVE_PROMPT + DECODE_STEPS + 8,
+        decode_steps=DECODE_STEPS, flight_size=2), device=dev)
+    ref = eng.generate(req)
+    flown = eng.generate_flight(req)
+    if flown.tokens.shape != (LM_BATCH, DECODE_STEPS) or not (
+            flown.tokens == ref.tokens).all():
+        raise AssertionError("the trained weights' flight tokens differ "
+                             "from generate's")
+    serve_s = time.perf_counter() - t0
+    say(f"phase 20 serve the trained {TRAIN_ARCH}: generate "
+        f"{ref.latency_s * 1e3:.1f} ms, flight of 2 "
+        f"{flown.latency_s * 1e3:.1f} ms, tokens equal ({LM_BATCH} prompts "
+        f"of {TRAIN_SERVE_PROMPT}, {DECODE_STEPS} steps) [{card}]")
+    del eng, state, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the checkpoint round trip on the card at reduced size, in bf16 (a
+    # head dim the attention kernel takes)
+    cfg_r = dataclasses.replace(reduced_config(get_config(TRAIN_ARCH)),
+                                head_dim=32, dtype="bfloat16")
+    oc = OptConfig(total_steps=4, state_dtype="bfloat16")
+    st = init_train_state(cfg_r, oc, 0, device=dev)
+    st, _ = make_train_step(cfg_r, oc, device=dev)(
+        st, make_batch(cfg_r, ShapeConfig("ckpt", 64, 2, "train"), 0))
+    where = ROOT / "build" / "phase20_ckpt"
+    shutil.rmtree(where, ignore_errors=True)
+    try:
+        ckpt_io.save(str(where), 1, st)
+        back, _ = ckpt_io.restore(str(where), init_train_state(
+            cfg_r, oc, 1, device=dev))
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    want, got = dict(ckpt_io._flatten(st)), dict(ckpt_io._flatten(back))
+    for key, t in want.items():
+        g = got[key]
+        if g.device != t.device or g.dtype != t.dtype or \
+                not torch.equal(g.detach(), t.detach()):
+            raise AssertionError(f"checkpoint round trip: {key} differs")
+    say(f"phase 20 checkpoint: a reduced bf16 {TRAIN_ARCH} state ({len(want)}"
+        f" leaves, bf16 moments) through npz and back to "
+        f"{dev.type}, bitwise "
+        f"[{card}]")
+    return {"arch": TRAIN_ARCH, "params": n_par, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": hist, "launches": launches,
+            "peak_memory_gb": peak_gb, "wall_s": wall,
+            "serve_generate_s": ref.latency_s,
+            "serve_flight_s": flown.latency_s, "serve_wall_s": serve_s}
+
+
+def full_depth_steps(dev, card) -> dict:
+    """Phase 20 (d): granite-moe-3b-a800m and zamba2-1.2b at full width
+    and depth, two steps each through ``make_train_step`` with remat on;
+    the loss finite and every kernel's launches exact per step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.step import (StepOptions, init_train_state,
+                                           make_train_step)
+    out = {}
+    for name in (MOE_ARCH, HYBRID_ARCH):
+        cfg = get_config(name)
+        n = cfg.num_layers
+        if cfg.moe:        # forward and recomputed; two per product back
+            want = {"flash_attention": 2 * n, "expert_matmul": 12 * n,
+                    "ssd_scan": 0}
+        else:              # the shared block is not rematerialised
+            want = {"flash_attention": n // cfg.hybrid_attn_every,
+                    "expert_matmul": 0, "ssd_scan": 2 * n}
+        oc = OptConfig(warmup_steps=5, total_steps=2,
+                       state_dtype=cfg.optimizer_state_dtype)
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, oc, 0, device=dev)
+        step = make_train_step(cfg, oc, options=StepOptions(remat=True),
+                               device=dev)
+        steps = []
+        for i in range(2):
+            batch = make_batch(cfg, ShapeConfig("full", TRAIN_SEQ,
+                                                TRAIN_BATCH, "train"), i)
+            kernels = reset_counts()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = {k: fn.launches for k, fn in kernels.items()}
+            loss = float(m["loss"])
+            if got != want or not math.isfinite(loss):
+                raise AssertionError(f"{name} step {i}: loss {loss}, "
+                                     f"launches {got}, expected {want}")
+            steps.append({"loss": loss, "aux": float(m["aux"]),
+                          "grad_norm": float(m["grad_norm"]), "ms": ms,
+                          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+                          / (ms / 1e3), "launches": got})
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_par = sum(p.numel() for p in state["params"].parameters())
+        out[name] = {"params": n_par, "steps": steps,
+                     "peak_memory_gb": peak}
+        say(f"phase 20 train {name} (full depth, remat, B={TRAIN_BATCH}, "
+            f"S={TRAIN_SEQ}, {n_par:,} parameters): " + "; ".join(
+                f"step {i}: loss {s['loss']:.4f}, {s['ms']:.1f} ms, "
+                f"{s['tokens_per_s']:.0f} tokens/s"
+                for i, s in enumerate(steps))
+            + f"; launches per step {want}; peak memory {peak:.2f} GB "
+            f"[{card}]")
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def training_phase(dev, card) -> dict:
+    """Phase 20: the training path (see the module docstring)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    walls = {}
+    out = {}
+    for key, fn in (("kernel_grads", kernel_grads),
+                    ("wiring", train_wiring), ("trainer", trainer_run),
+                    ("full_depth", full_depth_steps)):
+        t0 = time.perf_counter()
+        out[key] = fn(dev, card)
+        walls[key] = time.perf_counter() - t0
+    walls["phase"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    say("phase 20 walls s " + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items()) + f" [{card}]")
+    return out
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1788,6 +2337,20 @@ def main() -> int:
     # ---- 18-19. LM serve: the VLM and encoder-decoder paths ---------------
     results["vlm_serve"] = vlm_phase(dev, card)
     results["encdec_serve"] = encdec_phase(dev, card)
+
+    # ---- 20. training ------------------------------------------------------
+    results["training"] = training_phase(dev, card)
+    grads = results["training"]["kernel_grads"]
+    depth = results["training"]["full_depth"]
+    trained = results["training"]["trainer"]
+
+    def train_launches(kernel):
+        """The kernel's launches per training step on each path: the
+        trainer's (gemma-2b, no remat) and the full-depth remat steps."""
+        out = {TRAIN_ARCH: trained["steps"][0]["launches"][kernel]}
+        out.update({name: d["steps"][0]["launches"][kernel]
+                    for name, d in depth.items()})
+        return {name: n for name, n in out.items() if n}
     paths = {ARCH: lm_launches, **{
         name: results[key]["launches"] for name, key in (
             (MOE_ARCH, "moe_serve"), (HYBRID_ARCH, "hybrid_serve"),
@@ -1798,7 +2361,7 @@ def main() -> int:
         return {name: got[kernel] for name, got in paths.items()
                 if kernel in got}
 
-    # ---- 20. kernels line --------------------------------------------------
+    # ---- 21. kernels line --------------------------------------------------
     kernels = [
         {"name": "queue_booking", "route": "cuda",
          "source": "src/repro_torch/csrc/queue_booking.cu",
@@ -1836,7 +2399,11 @@ def main() -> int:
                          "it has no logit cap, so it and ms_like_library "
                          "are at cap 0, window 0",
          "path_launches": path_launches("flash_attention"),
-         "shapes": k3["rows"]},
+         "shapes": k3["rows"],
+         "train_launches_per_step": train_launches("flash_attention"),
+         "trainer_launches": trained["launches"]["flash_attention"],
+         "backward_ms": grads["flash_attention"][0]["backward_ms"],
+         "train_shapes": grads["flash_attention"]},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:67",
@@ -1861,14 +2428,18 @@ def main() -> int:
          "library_call": "torch.bmm; every time is the mean per launch over "
                          "the MoE path's served launches (prefill C=2048, "
                          "bound by operations, and decode C=4, by bytes)",
-         "shapes": k5["rows"]},
+         "shapes": k5["rows"],
+         "train_launches_per_step": train_launches("expert_matmul"),
+         "train_shapes": grads["expert_matmul"]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:72",
          "launches": results["hybrid_serve"]["launches"]["ssd_scan"],
          "max_abs_err": k6_err, "ms": k6["ms"], "loop_ms": k6["loop_ms"],
          "plain_ms": k6_plain_ms, "bound_ms": k6["bound_ms"],
-         "bound_by": k6["bound_by"], "library_ms": None},
+         "bound_by": k6["bound_by"], "library_ms": None,
+         "train_launches_per_step": train_launches("ssd_scan"),
+         "train_shape": grads["ssd_scan"]},
     ]
     results["kernels"] = kernels
     results["expert_matmul"] = k5

@@ -92,9 +92,21 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0,
 
     q: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D], float32 or bfloat16, any
     strides with D contiguous.  CUDA tensors launch the kernel (D in
-    ``HEAD_DIMS``); CPU tensors run :func:`attention_plain`.
+    ``HEAD_DIMS``); CPU tensors run :func:`attention_plain`.  When grad
+    mode is on and an input requires grad, the call goes through an
+    autograd Function whose backward is :func:`attention_vjp`; otherwise
+    (serving) it launches directly.
     """
     _check(q, k, v, causal)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, window, logit_cap, scale)
+    return _forward(q, k, v, causal, window, logit_cap, scale)
+
+
+def _forward(q, k, v, causal, window, logit_cap, scale):
+    """The kernel on CUDA tensors, :func:`attention_plain` on CPU ones."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                logit_cap=logit_cap, scale=scale)
@@ -114,7 +126,6 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0,
                 or x.data_ptr() % 16:
             raise ValueError(f"{name} needs a contiguous head dim, rows "
                              f"16-byte aligned; strides {x.stride()}")
-    scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if out.numel() == 0:
@@ -136,4 +147,82 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0,
 
 #: kernel launches since the count was last set to 0
 mha.launches = 0
+
+
+def attention_vjp(q, k, v, dout, *, causal: bool = True,
+                  window: int = 0, logit_cap: float = 0.0,
+                  scale: float | None = None, block_q: int | None = None):
+    """The gradient of :func:`mha` by the explicit softmax rule, in float32.
+
+    For each block of queries: the scores ``s = q.k * scale`` again from q
+    and k, the cap ``t = tanh(s / cap)``, ``s' = cap t``, the causal and
+    window masks, ``P = softmax(s')``; then ``dV = P^T dO``, ``dP = dO
+    V^T``, ``dS' = P o (dP - rowsum(dO o O))``, ``dS = dS' (1 - t^2)``
+    under a cap, ``dQ = dS K scale`` and ``dK = dS^T Q scale``, dK and dV
+    summed over each GQA group.  The row sum ``rowsum(dO o O)`` is taken
+    as ``rowsum(P o dP)``, its equal (O = P V), from the float32 P: the
+    forward's output rounded to bf16 would put that rounding into every
+    dS (in bf16 it took dQ 2.5 x past the bf16 bar of its plain version's
+    float32 autograd; this form stays within a quarter of it).  Sk may
+    differ from Sq when ``causal=False`` (an encoder's or a cross
+    attention).  Queries go in blocks of ``block_q`` (by default as many
+    as keep a block's scores within 2**26 elements).  Returns (dq, dk,
+    dv) in the inputs' dtype.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    if block_q is None:
+        block_q = max(1, min(sq, (1 << 26) // max(1, b * hq * sk)))
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, hkv, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    for i0 in range(0, sq, block_q):
+        i1 = min(sq, i0 + block_q)
+        qg = q[:, :, i0:i1].float().reshape(b, hkv, rep, i1 - i0, d)
+        dog = dout[:, :, i0:i1].float().reshape(b, hkv, rep, i1 - i0, d)
+        s = torch.einsum("bgrqd,bgkd->bgrqk", qg, kf) * scale
+        if logit_cap:
+            t = torch.tanh(s / logit_cap)
+            s = t * logit_cap
+        qpos = torch.arange(i0, i1, device=q.device)[:, None] + (sk - sq)
+        mask = torch.ones((i1 - i0, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        p = torch.softmax(s.masked_fill_(~mask, NEG_INF), dim=-1)
+        del s
+        dv += torch.einsum("bgrqk,bgrqd->bgkd", p, dog)
+        dp = torch.einsum("bgrqd,bgkd->bgrqk", dog, vf)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        del p, dp
+        if logit_cap:
+            ds = ds * (1 - torch.square(t))
+            del t
+        ds = ds * scale
+        dq[:, :, i0:i1] = torch.einsum("bgrqk,bgkd->bgrqd", ds, kf).reshape(
+            b, hq, i1 - i0, d)
+        dk += torch.einsum("bgrqk,bgrqd->bgkd", ds, qg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    """:func:`mha` with its gradient: the kernel (or the plain version
+    on the CPU) forward, :func:`attention_vjp` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_cap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, logit_cap=logit_cap,
+                        scale=scale)
+        return _forward(q, k, v, causal, window, logit_cap, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = attention_vjp(*ctx.saved_tensors, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
 _count_lock = threading.Lock()

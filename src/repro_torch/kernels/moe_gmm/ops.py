@@ -55,9 +55,20 @@ def gmm(buf, w):
 
     buf: [E, C, D]; w: [E, D, F], float32 or bfloat16, both contiguous.
     CUDA tensors launch the kernel (D and F multiples of 8); CPU tensors
-    run :func:`expert_matmul_plain`.  Returns [E, C, F].
+    run :func:`expert_matmul_plain`.  Returns [E, C, F].  When grad mode
+    is on and an input requires grad, the call goes through an autograd
+    Function whose backward is two more of these products
+    (:func:`gmm_vjp`); otherwise (serving) it launches directly.
     """
     _check(buf, w)
+    if torch.is_grad_enabled() and (buf.requires_grad or w.requires_grad):
+        return _ExpertMatmul.apply(buf, w)
+    return _forward(buf, w)
+
+
+def _forward(buf, w):
+    """The kernel on CUDA tensors, :func:`expert_matmul_plain` on CPU
+    ones."""
     if buf.device.type == "cpu":
         return expert_matmul_plain(buf, w)
     if buf.device.type != "cuda":
@@ -90,4 +101,44 @@ def gmm(buf, w):
 
 #: kernel launches since the count was last set to 0
 gmm.launches = 0
+
+
+def _pad_rows(x, multiple: int):
+    """``x`` [E, C, N] with zero rows appended until C is a multiple of
+    ``multiple``."""
+    pad = -x.shape[1] % multiple
+    return torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
+
+
+def gmm_vjp(buf, w, dout, *, need=(True, True)):
+    """The gradient of :func:`gmm`.  The gradient of a batched GEMM is two
+    batched GEMMs, so this runs the same kernel twice (the plain version
+    on CPU tensors): ``dbuf = dout @ w^T`` and ``dw = buf^T @ dout``, the
+    transposes made contiguous.  In ``dw`` the capacity C is the
+    contraction, which the kernel takes in multiples of 8, so C is padded
+    with zero rows there (``moe_capacity`` rounds it to 4).  ``need``
+    says which of (dbuf, dw) to compute; the other is None."""
+    dout = dout.contiguous()
+    dbuf = dw = None
+    if need[0]:
+        dbuf = _forward(dout, w.transpose(1, 2).contiguous())
+    if need[1]:
+        dw = _forward(_pad_rows(buf, 8).transpose(1, 2).contiguous(),
+                      _pad_rows(dout, 8))
+    return dbuf, dw
+
+
+class _ExpertMatmul(torch.autograd.Function):
+    """:func:`gmm` with its gradient: the kernel forward, :func:`gmm_vjp`
+    (two more launches) backward."""
+
+    @staticmethod
+    def forward(ctx, buf, w):
+        ctx.save_for_backward(buf, w)
+        return _forward(buf, w)
+
+    @staticmethod
+    def backward(ctx, dout):
+        buf, w = ctx.saved_tensors
+        return gmm_vjp(buf, w, dout, need=ctx.needs_input_grad)
 _count_lock = threading.Lock()

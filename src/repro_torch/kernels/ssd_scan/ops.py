@@ -143,9 +143,20 @@ def ssd(x, dt, A, B, C, *, chunk: int = 256):
     multiples of 16 up to ``ssd_scan_max_dim``); CPU tensors run
     :func:`ssd_plain`.  As in the reference, the sequence length must be a
     multiple of ``min(chunk, s)``; the kernel's own tiling does not depend
-    on it.
+    on it.  When grad mode is on and an input requires grad, the call
+    goes through an autograd Function (the kernel on contiguous copies of
+    the inputs forward, :func:`ssd_vjp` backward); otherwise (serving) it
+    launches directly.
     """
     _check(x, dt, A, B, C)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        return _SSD.apply(x, dt, A, B, C, chunk)
+    return _forward(x, dt, A, B, C, chunk)
+
+
+def _forward(x, dt, A, B, C, chunk):
+    """The kernel on CUDA tensors, :func:`ssd_plain` on CPU ones."""
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, B, C, chunk=chunk)
     if x.device.type != "cuda":
@@ -186,4 +197,110 @@ def ssd(x, dt, A, B, C, *, chunk: int = 256):
 
 #: kernel launches since the count was last set to 0
 ssd.launches = 0
+
+
+def ssd_vjp(x, dt, A, B, C, dy, dstate, *, chunk: int):
+    """The gradient of :func:`ssd` by the reverse of the chunked form.
+
+    Recomputes :func:`ssd_plain`'s intermediates, then takes the
+    cotangents ``dy`` [b, s, h, p] and ``dstate`` [b, h, p, n] (the final
+    state's) back through them: the inter-chunk outputs and the
+    intra-chunk products as einsums, the inter-chunk recurrence
+    ``S_c = S_{c-1} exp(sum a_c) + states_c`` backwards over the chunk
+    decays seeded by ``dstate``, and the log-decay ``a = dt A`` through
+    the ``segsum`` matrix, ``cum``, ``decay_to_end``, ``chunk_decay`` and
+    ``decay_in`` into dt and A.  B and C's gradients are summed over the
+    heads of their group.  Returns (dx, ddt, dA, dB, dC), float32.
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    q = _chunk_limit(s, chunk)
+    nc = s // q
+    rep = h // g
+    x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
+
+    xb = x.reshape(b, nc, q, h, p)
+    dtb = dt.reshape(b, nc, q, h)
+    Bb = torch.repeat_interleave(B.reshape(b, nc, q, g, n), rep, dim=3)
+    Cb = torch.repeat_interleave(C.reshape(b, nc, q, g, n), rep, dim=3)
+    a_hc = (dtb * A).permute(0, 1, 3, 2)                      # [b,nc,h,q]
+    cum = torch.cumsum(a_hc, dim=-1)
+    L = torch.exp(segsum(a_hc))                               # [b,nc,h,q,q]
+    cb = torch.einsum("bcqhn,bckhn->bchqk", Cb, Bb)
+    dtx = xb * dtb[..., None]                                 # [b,nc,q,h,p]
+    decay_to_end = torch.exp(cum[..., -1:] - cum)             # [b,nc,h,q]
+    states = torch.einsum("bcqhn,bchq,bcqhp->bchpn", Bb, decay_to_end, dtx)
+    chunk_decay = torch.exp(cum[..., -1])                     # [b,nc,h]
+    decay_in = torch.exp(cum)
+    # the states entering each chunk, by the plain recurrence
+    st_prev = torch.empty_like(states)
+    run = torch.zeros_like(states[:, 0])
+    for c in range(nc):
+        st_prev[:, c] = run
+        run = run * chunk_decay[:, c, :, None, None] + states[:, c]
+
+    dyb = dy.float().reshape(b, nc, q, h, p)
+    # y_inter = C . decay_in . st_prev
+    dCb = torch.einsum("bcqhp,bchq,bchpn->bcqhn", dyb, decay_in, st_prev)
+    d_decay_in = torch.einsum("bcqhp,bcqhn,bchpn->bchq", dyb, Cb, st_prev)
+    d_st_prev = torch.einsum("bcqhp,bcqhn,bchq->bchpn", dyb, Cb, decay_in)
+    # the recurrence backwards: G_c, the whole gradient of S_c, is
+    # dS_c (dstate for the last chunk, d_st_prev[c + 1] before it) plus
+    # G_{c+1} exp(sum a_{c+1}); states_c takes G_c, the chunk decay
+    # G_c . S_{c-1}
+    d_states = torch.empty_like(states)
+    grad = (torch.zeros_like(states[:, 0]) if dstate is None
+            else dstate.float())
+    for c in range(nc - 1, -1, -1):
+        d_states[:, c] = grad
+        if c:
+            grad = d_st_prev[:, c] + grad * chunk_decay[:, c, :, None, None]
+    d_chunk_decay = torch.einsum("bchpn,bchpn->bch", d_states, st_prev)
+    # states = B . decay_to_end . dtx
+    dBb = torch.einsum("bchpn,bchq,bcqhp->bcqhn", d_states, decay_to_end,
+                       dtx)
+    d_dte = torch.einsum("bchpn,bcqhn,bcqhp->bchq", d_states, Bb, dtx)
+    d_dtx = torch.einsum("bchpn,bcqhn,bchq->bcqhp", d_states, Bb,
+                         decay_to_end)
+    # y_intra = (cb o L) . dtx
+    dM = torch.einsum("bcqhp,bckhp->bchqk", dyb, dtx)
+    d_dtx = d_dtx + torch.einsum("bchqk,bcqhp->bckhp", cb * L, dyb)
+    d_cb = dM * L
+    dCb = dCb + torch.einsum("bchqk,bckhn->bcqhn", d_cb, Bb)
+    dBb = dBb + torch.einsum("bchqk,bcqhn->bckhn", d_cb, Cb)
+    # the log-decay: L = exp(segsum), segsum[i, j] = cum_i - cum_j (j <= i;
+    # L is 0 above the diagonal, so d_seg is too)
+    d_seg = dM * cb * L
+    d_cum = d_seg.sum(-1) - d_seg.sum(-2)
+    d_end = d_dte * decay_to_end                  # decay_to_end = exp(e - cum)
+    d_cum = d_cum - d_end
+    d_cum[..., -1] += d_end.sum(-1) + d_chunk_decay * chunk_decay
+    d_cum = d_cum + d_decay_in * decay_in
+    d_a = torch.flip(torch.cumsum(torch.flip(d_cum, (-1,)), -1), (-1,))
+    d_a = d_a.permute(0, 1, 3, 2)                             # [b,nc,q,h]
+    # a = dt A, dtx = x dt
+    ddt = d_a * A + (d_dtx * xb).sum(-1)
+    dA = (d_a * dtb).sum((0, 1, 2))
+    dx = d_dtx * dtb[..., None]
+    dB = dBb.reshape(b, nc, q, g, rep, n).sum(4).reshape(b, s, g, n)
+    dC = dCb.reshape(b, nc, q, g, rep, n).sum(4).reshape(b, s, g, n)
+    return (dx.reshape(b, s, h, p), ddt.reshape(b, s, h), dA, dB, dC)
+
+
+class _SSD(torch.autograd.Function):
+    """:func:`ssd` with its gradient: the kernel (the plain version on the
+    CPU) on contiguous float32 copies forward, :func:`ssd_vjp` backward
+    with the cotangents of both outputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        x, dt, A, B, C = (t.float().contiguous() for t in (x, dt, A, B, C))
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return _forward(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        grads = ssd_vjp(*ctx.saved_tensors, dy, dstate, chunk=ctx.chunk)
+        return (*grads, None)
 _count_lock = threading.Lock()

@@ -65,7 +65,8 @@ def mamba2_block(x, p, ssm: SSMConfig, *, mode: str, cache):
     """x: [B, S, D] (S = 1 in decode).  ``mode="prefill"`` scans the
     prompt through the ``ssd_scan`` kernel and writes the conv tails and
     the final state into ``cache``; ``mode="decode"`` advances them by one
-    token.  Returns (y [B, S, D], cache)."""
+    token; ``mode="train"`` is a prefill without a cache (``cache`` None).
+    Returns (y [B, S, D], cache)."""
     b, s, d = x.shape
     din = ssm.expand * d
     g, n = ssm.ngroups, ssm.state_dim
@@ -88,17 +89,16 @@ def mamba2_block(x, p, ssm: SSMConfig, *, mode: str, cache):
                             p["conv_C_b"])
         for name, new in (("conv_x", cx), ("conv_B", cB), ("conv_C", cC)):
             cache[name].copy_(new)
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         k = ssm.conv_width
-        for name, t in (("conv_x", xs), ("conv_B", B_), ("conv_C", C_)):
-            cache[name].copy_(F.pad(t, (0, 0, k - 1, 0))[:, -(k - 1):])
+        if cache is not None:
+            for name, t in (("conv_x", xs), ("conv_B", B_), ("conv_C", C_)):
+                cache[name].copy_(F.pad(t, (0, 0, k - 1, 0))[:, -(k - 1):])
         xs = causal_conv(xs, p["conv_x_w"], p["conv_x_b"])
         B_ = causal_conv(B_, p["conv_B_w"], p["conv_B_b"])
         C_ = causal_conv(C_, p["conv_C_w"], p["conv_C_b"])
     else:
-        raise NotImplementedError(
-            f"mode {mode!r}: see ROADMAP.md §1 item 18 (training and its "
-            f"backward kernels)")
+        raise ValueError(f"unknown mode {mode!r}")
     xs = F.silu(xs).reshape(b, s, h, p_dim)
     B_ = F.silu(B_).reshape(b, s, g, n)
     C_ = F.silu(C_).reshape(b, s, g, n)
@@ -111,7 +111,8 @@ def mamba2_block(x, p, ssm: SSMConfig, *, mode: str, cache):
     else:
         y, st = ssd(xs.float(), dt, A, B_.float(), C_.float(),
                     chunk=ssm.chunk_size)
-    cache["state"].copy_(st)
+    if cache is not None:
+        cache["state"].copy_(st)
 
     y = y + xs.float() * p["D"][None, None, :, None]
     y = y.reshape(b, s, din).to(x.dtype)

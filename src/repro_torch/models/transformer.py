@@ -43,17 +43,28 @@ were computed, so its decoder never sees the encoder; the port follows
 the reference's own branch that computes them (``_decoder_block_apply``
 with a cache that holds no ``cross_k``).
 
-What this slice leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: ``pad_heads``, the sharding hooks (``constrain``, ``ep``)
-and training (``loss_fn``, ``mode="train"``).
+Training: ``mode="train"`` is a prefill without a cache, and
+:func:`loss_fn` is the reference's loss (per-token cross entropy, the
+Raptor ``loss_weight`` renormalisation, ``ce + 0.01 * aux`` with the MoE
+layers' load-balancing loss).  Its backward runs through the three
+kernels' autograd Functions (``flash_attention``, ``expert_matmul`` and
+``ssd_scan``); ``apply_stack(..., remat=True)`` recomputes each layer of
+the stack in the backward (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` does.
+
+What the port leaves out raises ``NotImplementedError`` naming its
+ROADMAP item: ``pad_heads`` and the sharding hooks (``constrain``,
+``ep``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -62,15 +73,14 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (attention, mlp_block, mrope_tables,
                                        rms_norm, rope_tables, rotate,
                                        softcap)
-from repro_torch.models.moe import init_moe_params, moe_mlp
+from repro_torch.models.moe import init_moe_params, moe_block, moe_mlp
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 _LEFT_OUT = {
     "sharding": "ROADMAP.md §1 item 13 (distributed)",
-    "training": "ROADMAP.md §1 item 18 (training and its backward "
-                "kernels)",
 }
+_FULL_PASS = ("prefill", "train")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -98,7 +108,9 @@ class ParamTree(nn.Module):
     """A parameter pytree as a module.  Dict keys become attribute names
     (so ``state_dict`` names follow the pytree: ``layers.0.attn.wq``),
     lists become ``nn.ModuleList``s, and ``tree["key"]`` reads like the
-    reference's dicts.  Parameters carry no gradient (inference only)."""
+    reference's dicts.  Parameters are made with ``requires_grad=False``
+    (serving needs no gradient); the training state turns gradients on
+    (``training.step.init_train_state``)."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -125,11 +137,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     N(0, 0.02) in the model dtype, every norm scale 0 (float32), the MoE
     router in float32, the Mamba2 constants as the reference sets them,
     from a seeded ``torch.Generator`` on ``device`` (the card unless
-    given).  The numbers differ from the reference's threefry draws; the
-    tests share weights through :func:`params_from_numpy` instead."""
+    given; ``device="meta"`` allocates nothing).  The numbers differ from
+    the reference's threefry draws; the tests share weights through
+    :func:`params_from_numpy` instead."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = generator or torch.Generator(device=dev).manual_seed(seed)
+    gen = generator
+    if gen is None and dev.type != "meta":     # meta: shapes only
+        gen = torch.Generator(device=dev).manual_seed(seed)
     dt = DTYPES[cfg.dtype]
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
@@ -259,7 +274,8 @@ def attention_block(x, p, cfg: ModelConfig, *, kind: str, mode: str,
     local layer its last ``min(window, S)`` keys into the ring.
     ``mode="decode"`` writes the one new key at ``min(idx, C-1)`` (global)
     or ``idx mod C`` (local) and attends over the cache
-    (``decode_attention``) with ``cache["kv_pos"]``.
+    (``decode_attention``) with ``cache["kv_pos"]``.  ``mode="train"`` is
+    a prefill without a cache.
     """
     b, s, _ = x.shape
     scale = _attn_scale(cfg)
@@ -280,9 +296,8 @@ def attention_block(x, p, cfg: ModelConfig, *, kind: str, mode: str,
         out = gqa_decode(q[:, 0], cache["k"], cache["v"], kv_pos,
                          scale=scale, logit_cap=cap)
         return out.reshape(b, 1, -1) @ p["wo"], cache
-    if mode != "prefill":
-        raise NotImplementedError(
-            f"mode {mode!r}: see {_LEFT_OUT['training']}")
+    if mode not in _FULL_PASS:
+        raise ValueError(f"unknown mode {mode!r}")
 
     out = attention(q, k, v, window=window, logit_cap=cap, scale=scale)
     if cache is not None:
@@ -306,7 +321,8 @@ def cross_attention_block(x, p, cfg: ModelConfig, *, mode: str, cache,
     cache is given; the attention runs through ``flash_attention`` with
     ``causal=False`` (Sq may differ from Se).  ``mode="decode"`` attends
     over the cached ones through ``decode_attention``, every slot valid
-    (``cache["cross_kv_pos"]``, ``arange(Se)``)."""
+    (``cache["cross_kv_pos"]``, ``arange(Se)``).  ``mode="train"`` is a
+    prefill without a cache."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     scale = _attn_scale(cfg)
@@ -316,9 +332,8 @@ def cross_attention_block(x, p, cfg: ModelConfig, *, mode: str, cache,
         out = gqa_decode(q[:, 0], cache["cross_k"], cache["cross_v"],
                          cache["cross_kv_pos"], scale=scale, logit_cap=cap)
         return out.reshape(b, 1, -1) @ p["wo"]
-    if mode != "prefill":
-        raise NotImplementedError(
-            f"mode {mode!r}: see {_LEFT_OUT['training']}")
+    if mode not in _FULL_PASS:
+        raise ValueError(f"unknown mode {mode!r}")
     se = enc_out.shape[1]
     k = (enc_out @ p["wk"]).reshape(b, se, cfg.num_kv_heads, hd)
     v = (enc_out @ p["wv"]).reshape(b, se, cfg.num_kv_heads, hd)
@@ -336,8 +351,8 @@ def cross_attention_block(x, p, cfg: ModelConfig, *, mode: str, cache,
 def _block_apply(x, p, cfg: ModelConfig, i: int, *, mode, rope,
                  cache=None):
     """One layer of the stack; returns (x, cache, aux loss).  The MoE
-    layers' aux loss is a training term (``loss_fn``, not ported yet): the
-    serving stack does not compute it and returns 0."""
+    layers' load-balancing loss is a training term: ``mode="train"``
+    returns it, serving does not compute it and returns 0."""
     kind = cfg.layer_kind(i)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
@@ -348,11 +363,14 @@ def _block_apply(x, p, cfg: ModelConfig, i: int, *, mode, rope,
                                rope=rope, cache=cache)
     x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    if "moe" in p:
+    aux = 0.0
+    if "moe" in p and mode == "train":
+        y, aux = moe_block(h, p["moe"], cfg.moe, cfg.mlp_variant)
+    elif "moe" in p:
         y, _ = moe_mlp(h, p["moe"], cfg.moe, cfg.mlp_variant)
     else:
         y = mlp_block(h, p["mlp"], cfg.mlp_variant)
-    return x + y, cache, 0.0
+    return x + y, cache, aux
 
 
 def _shared_block_apply(x, p, cfg: ModelConfig, *, mode, rope, cache):
@@ -393,25 +411,60 @@ def _rope(cfg: ModelConfig, positions):
     return rope_tables(positions, hd, cfg.rope_theta)
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The ``"dots"`` remat policy (the reference's
+    ``dots_with_no_batch_dims_saveable``): keep every 2-D matmul's output
+    (``x @ W`` is one ``aten.mm``), recompute the rest."""
+    if op == torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(remat_policy: Optional[str]) -> dict:
+    """``torch.utils.checkpoint.checkpoint``'s arguments for a remat
+    policy: non-reentrant, and for ``"dots"`` a selective checkpoint that
+    saves the matmuls' outputs."""
+    if remat_policy not in (None, "dots"):
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    kw = {"use_reentrant": False}
+    if remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+    return kw
+
+
 def apply_stack(params, cfg: ModelConfig, x, *, mode, positions,
-                caches=None, enc_out=None):
+                caches=None, enc_out=None, remat: bool = False,
+                remat_policy: Optional[str] = None):
     """x: [B, S, D] embeddings; positions: [B, S], or [3, B, S] for
     M-RoPE (None for an attention-free stack); ``enc_out``: the encoder's
-    output [B, Se, D] at an encoder-decoder's prefill.  Returns (hidden,
-    new_caches, aux_loss); the aux loss is 0 here (see
-    :func:`_block_apply`)."""
+    output [B, Se, D] at an encoder-decoder's prefill or train pass.
+    Returns (hidden, new_caches, aux_loss), the aux loss the MoE layers'
+    sum in ``mode="train"`` (0 otherwise).  With ``remat`` and
+    ``mode="train"`` each layer's ``_block_apply`` is recomputed in the
+    backward, as in the reference (zamba2's shared block and an
+    encoder-decoder's layers are not)."""
     rope = _rope(cfg, positions)
     new_caches: Dict[str, Any] = {}
     every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+    aux_total = 0.0
+    remat_kw = _remat_kwargs(remat_policy) if remat and mode == "train" \
+        else None
     for i in range(cfg.num_layers):
         c = caches.get(f"layer_{i}") if caches else None
         p = params["layers"][i]
+        aux = 0.0
         if cfg.is_encoder_decoder:
             x, c = _decoder_block_apply(x, p, cfg, mode=mode, rope=rope,
                                         cache=c, enc_out=enc_out)
+        elif remat_kw is not None:
+            x, c, aux = ckpt.checkpoint(functools.partial(
+                _block_apply, p=p, cfg=cfg, i=i, mode="train", rope=rope),
+                x, **remat_kw)
         else:
-            x, c, _ = _block_apply(x, p, cfg, i, mode=mode, rope=rope,
-                                   cache=c)
+            x, c, aux = _block_apply(x, p, cfg, i, mode=mode, rope=rope,
+                                     cache=c)
+        aux_total = aux_total + aux
         if c is not None:
             new_caches[f"layer_{i}"] = c
         if every and (i + 1) % every == 0:
@@ -421,7 +474,7 @@ def apply_stack(params, cfg: ModelConfig, x, *, mode, positions,
                                         mode=mode, rope=rope, cache=sc)
             if sc is not None:
                 new_caches[name] = sc
-    return x, new_caches, 0.0
+    return x, new_caches, aux_total
 
 
 def encode(params, cfg: ModelConfig, enc_emb):
@@ -466,9 +519,52 @@ def _logits(params, cfg: ModelConfig, h):
     return logits
 
 
-def loss_fn(*args, **kwargs):
-    raise NotImplementedError(f"training is not ported yet; see "
-                              f"{_LEFT_OUT['training']}")
+def cross_entropy(logits, labels):
+    """Per-token cross entropy [B, S] of ``logits`` [B, S, V] (the model
+    dtype) at ``labels`` [B, S], as the reference computes it: the
+    max-shifted log-sum-exp in float32 (the max taken without a
+    gradient), the label's logit picked by ``gather``, no one-hot."""
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    shifted = (logits - m).float()
+    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0].float()
+    picked = shifted.gather(-1, labels[..., None].long())[..., 0]
+    return lse - (picked + m[..., 0].float())
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False,
+            remat_policy: Optional[str] = None, constrain=None, ep=None):
+    """The training loss.  batch: {"tokens" [B, S] or "embeddings" [B, S,
+    D], "labels" [B, S], optional "positions", "enc_emb" (an
+    encoder-decoder) and "loss_weight" [B] (Raptor's per-sample weights:
+    0 drops a failed or pre-empted flight member's samples and the mean
+    renormalises over the rest)}.  Returns (ce + 0.01 * aux, {"ce",
+    "aux"}), float32 scalars."""
+    check_supported(cfg)
+    refuse_sharding(constrain, ep)
+    enc_out = (encode(params, cfg, batch["enc_emb"])
+               if cfg.is_encoder_decoder else None)
+    x = _embed(params, cfg, batch["tokens"] if "tokens" in batch
+               else batch["embeddings"])
+    b, s = x.shape[0], x.shape[1]
+    positions = batch.get("positions")
+    if positions is None and not cfg.attention_free:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        if cfg.mrope:
+            positions = positions[None].expand(3, b, s)
+    h, _, aux = apply_stack(params, cfg, x, mode="train",
+                            positions=positions, enc_out=enc_out,
+                            remat=remat, remat_policy=remat_policy)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    per_tok = cross_entropy(_logits(params, cfg, h), batch["labels"])
+    w = batch.get("loss_weight")
+    if w is not None:
+        wt = w.float()[:, None]
+        ce = (per_tok * wt).sum() / torch.clamp(wt.sum() * per_tok.shape[1],
+                                                min=1.0)
+    else:
+        ce = per_tok.mean()
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,

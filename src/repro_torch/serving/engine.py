@@ -14,6 +14,9 @@ attention too) through ``decode_attention``, expert MLPs through
 ``expert_matmul`` and prefill Mamba2 scans through ``ssd_scan``.  PyTorch has no jit, so
 ``warmup`` pays the kernels' first build and load instead of a compile,
 and timed windows end with ``torch.cuda.synchronize()`` on the card.
+Prefill and decode run under ``torch.inference_mode()``, which each step
+enters in the thread that calls it (``serving/step.py``): a trained
+model's weights, which require grad, build no autograd graph here.
 """
 from __future__ import annotations
 

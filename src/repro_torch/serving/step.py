@@ -2,6 +2,10 @@
 
 The port of ``repro/serving/step.py``.  PyTorch runs eagerly, so there is
 nothing to jit: each builder closes over the config and returns the step.
+Each step runs under ``torch.inference_mode()``, entered by the step
+itself: the mode is thread-local, and a Raptor flight calls the steps
+from its members' threads.  So serving weights that require grad (a
+trained model's) records no autograd graph.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ def make_prefill_step(cfg: ModelConfig, max_len: int, constrain=None,
     tfm.check_supported(cfg)
     tfm.refuse_sharding(constrain, ep)
 
+    @torch.inference_mode()
     def prefill_step(params, batch):
         return tfm.prefill(params, cfg, batch, max_len)
     return prefill_step
@@ -25,6 +30,7 @@ def make_decode_step(cfg: ModelConfig, constrain=None, ep=None):
     tfm.check_supported(cfg)
     tfm.refuse_sharding(constrain, ep)
 
+    @torch.inference_mode()
     def decode_step(params, caches, tokens):
         return tfm.decode_step(params, cfg, caches, tokens)
     return decode_step

@@ -64,6 +64,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--mode", "generate", "--arch", "gemma2-9b",
                     "--reduced"])
+    from repro_torch.launch import train
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.step import init_train_state, make_train_step
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, OptConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(cfg, OptConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "gemma2-9b", "--reduced", "--steps", "1"])
 
 
 def test_sweeps_and_experiments_raise_without_cuda(monkeypatch):

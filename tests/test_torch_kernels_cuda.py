@@ -603,3 +603,98 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         ssd(x[..., :16].double(), dt.double(), A.double(), B.double(),
             B.double(), chunk=64)
+
+
+# -- the training Functions: the kernels forward, the port's backward ------
+
+def _grads_close(got, want, rel):
+    """Each gradient within rel x its max |grad| (atol) + rel (rtol)."""
+    for g, w in zip(got, want):
+        w = w.float()
+        torch.testing.assert_close(g.float(), w, rtol=rel,
+                                   atol=rel * float(w.abs().max()))
+
+
+# b, hq, hkv, sq, sk, d, causal, window, cap: gemma-2b's heads (MQA of
+# 256), a window with a cap, and a non-causal cross attention (Sq != Sk)
+FLASH_GRAD_CASES = [(2, 8, 1, 512, 512, 256, True, 0, 0.0),
+                    (1, 4, 2, 384, 384, 64, True, 128, 50.0),
+                    (2, 4, 4, 200, 640, 64, False, 0, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,cap",
+                         FLASH_GRAD_CASES)
+def test_flash_function_grads_on_card(cuda, b, hq, hkv, sq, sk, d, causal,
+                                      window, cap, dtype):
+    """The kernel forward and ``attention_vjp`` backward against float32
+    autograd through ``attention_plain``; one launch, in the forward."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q = torch.randn((b, hq, sq, d), generator=g, device=cuda)
+    k = torch.randn((b, hkv, sk, d), generator=g, device=cuda)
+    v = torch.randn((b, hkv, sk, d), generator=g, device=cuda)
+    dout = torch.randn((b, hq, sq, d), generator=g, device=cuda)
+    opts = dict(causal=causal, window=window, logit_cap=cap)
+    ins = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+    n0 = mha.launches
+    out = mha(*ins, **opts)
+    got = torch.autograd.grad(out, ins, dout.to(dtype))
+    torch.cuda.synchronize()
+    assert mha.launches == n0 + 1
+    ref_in = [t.detach().float().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(attention_plain(*ref_in, **opts), ref_in,
+                               dout.to(dtype).float())
+    _grads_close(got, want, 2e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", [(4, 128, 64, 128), (40, 1024, 1536,
+                                                         512),
+                                     (8, 12, 64, 40)])
+def test_gmm_function_grads_on_card(cuda, e, c, d, f, dtype):
+    """Forward and both products of the backward through the kernel:
+    three launches, against float32 autograd through the plain version
+    (C = 12 is padded to 16 where it is the contraction)."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    buf = torch.randn((e, c, d), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((e, d, f), generator=g, device=cuda) * 0.05).to(dtype)
+    dout = torch.randn((e, c, f), generator=g, device=cuda).to(dtype)
+    ins = [buf.requires_grad_(True), w.requires_grad_(True)]
+    n0 = gmm.launches
+    got = torch.autograd.grad(gmm(*ins), ins, dout)
+    torch.cuda.synchronize()
+    assert gmm.launches == n0 + 3
+    ref_in = [t.detach().float().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(expert_matmul_plain(*ref_in), ref_in,
+                               dout.float())
+    _grads_close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(1, 512, 4, 64, 1, 64, 256),
+                                               (2, 256, 8, 32, 2, 32, 64),
+                                               (2, 2048, 64, 64, 1, 64,
+                                                256)])
+def test_ssd_function_grads_on_card(cuda, b, s, h, p, g, n, chunk):
+    """The kernel forward and ``ssd_vjp`` backward (cotangents for y and
+    the final state) against autograd through ``ssd_plain``."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn((b, s, h, p), generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=cuda)) * 0.1
+    A = -torch.exp(torch.randn((h,), generator=gen, device=cuda) * 0.3)
+    B = torch.randn((b, s, g, n), generator=gen, device=cuda) * 0.5
+    C = torch.randn((b, s, g, n), generator=gen, device=cuda) * 0.5
+    dy = torch.randn((b, s, h, p), generator=gen, device=cuda)
+    dst = torch.randn((b, h, p, n), generator=gen, device=cuda)
+    ins = [t.clone().requires_grad_(True) for t in (x, dt, A, B, C)]
+    n0 = ssd.launches
+    got = torch.autograd.grad(ssd(*ins, chunk=chunk), ins, (dy, dst))
+    torch.cuda.synchronize()
+    assert ssd.launches == n0 + 1
+    ref_in = [t.clone().requires_grad_(True) for t in (x, dt, A, B, C)]
+    want = torch.autograd.grad(ssd_plain(*ref_in, chunk=chunk), ref_in,
+                               (dy, dst))
+    _grads_close(got, want, 1e-3)

@@ -19,11 +19,11 @@
 * Scheduler: the cases of tests/test_core_engine.py run against the
   port's ``Flight``, ``StateStream``, ``TaskContext`` and
   ``RaptorScheduler``.
-* Training (``loss_fn``, ``mode="train"``) is refused with
-  ``NotImplementedError`` naming its ROADMAP item, for the VLM and the
-  encoder-decoder too.  tests/test_torch_vlm_encdec.py holds those two
+* tests/test_torch_vlm_encdec.py holds the VLM and encoder-decoder
   paths to the reference (the encoder-decoder's prefill there, since the
-  reference's own ``prefill`` does not read its encoder).
+  reference's own ``prefill`` does not read its encoder), and
+  tests/test_torch_training.py the training path (``loss_fn``,
+  ``mode="train"``).
 """
 import dataclasses
 import inspect
@@ -282,26 +282,10 @@ def test_every_architecture_is_ported():
     assert sorted(PORTED) == sorted(ARCH_NAMES)
 
 
-@pytest.mark.parametrize("name", VLM_ENCDEC)
-def test_training_is_refused_naming_its_roadmap_item(name):
-    cfg = reduced_config(get_config(name))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 18"):
-        tt.loss_fn(None, cfg, {})
-    params = tt.init_params(cfg, device="cpu")
-    x = torch.zeros((1, 4, cfg.d_model))
-    positions = torch.zeros((3, 1, 4) if cfg.mrope else (1, 4),
-                            dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 18"):
-        tt.apply_stack(params, cfg, x, mode="train", positions=positions,
-                       enc_out=x)
-
-
 def test_left_out_features_are_refused():
     cfg = reduced_config(get_config("gemma2-9b"))
     with pytest.raises(NotImplementedError, match="item 13"):
         tt.init_params(dataclasses.replace(cfg, pad_heads=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tt.loss_fn(None, cfg, {})
     params = tt.init_params(cfg, device="cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="item 13"):
