@@ -176,7 +176,31 @@ the synthetic data of batches of 2 x 2,048 tokens, by ``launch/train.py``.
    loss finite and exactly 64 flash_attention and 384 expert_matmul
    launches (granite) or 76 ssd_scan and 6 flash_attention launches
    (zamba2) per step;
-21. one JSON line listing each kernel (launches on its path, error
+21. distributed, on a one-rank NCCL group (one card holds one rank):
+   (a) the flight collectives on CUDA tensors (``core/distops.py``: the
+   rank adopts its own value, winner 0; ``masked_mean`` unhealthy gives
+   (0, 0); ``k_of_n_mean`` with k=1 its own value); (b)
+   granite-moe-3b-a800m at full width served as phase 12 (3 batches of 2
+   prompts of 4,096 tokens, 32 greedy steps) through ``moe_block_ep``
+   with an ``EPSpec`` over the (data=1, model=1) ``DeviceMesh`` and
+   ``Plan.constrain``, and without: the tokens exactly equal, the
+   kernels' launches equal, two exchanges a MoE layer a pass, each
+   skipped (the identity on the one-rank model group); prefill and
+   decode times of both, and the pace of the NCCL exchange that the
+   skip saves at decode's buffer beside a copy of it; then a prefill and WIRING_STEPS
+   teacher-forced steps under EP with every expert_matmul call held to
+   its plain version; (c) qwen2-vl-2b with ``pad_heads=16`` (12 heads):
+   its prefill at full width through flash_attention on the padded
+   heads, the logits within RMS_K of the plain versions' bf16 spread from
+   float32; (d) gemma-2b at full width, two steps through a plan over the
+   one-rank mesh (batch shard, gradient mean by NCCL) bitwise equal in
+   loss and grad norm to the same two steps without it; (e) the
+   closed-loop load sweep on the kernel routes through the one-rank
+   config mesh, bitwise equal to ``devices=None``; (f) the dry run of
+   every cell on both production meshes (abstract, ``meta``): the cells
+   ok, and llama4-maverick-400b-a17b train_4k's per-rank parameter and
+   moment bytes on 2x16x16;
+22. one JSON line listing each kernel (launches on its path, error
    against the plain version, times, bound, library time; for
    ``maxplus_scan`` also its launches on the fault paths; for both
    scheduler kernels their launches on the sweep path; for the two
@@ -188,8 +212,11 @@ the synthetic data of batches of 2 x 2,048 tokens, by ``launch/train.py``.
    (``maxplus_scan``, ``decode_attention``, ``ssd_scan``) is the pace of
    an event-timed loop of calls, which the host sets for short kernels,
    and ``plain_ms`` is timed so too; for the three training kernels
-   also their launches per training step and their backward times;
-22. the last line: ``{"ok": true, "device": {...}}``.
+   also their launches per training step and their backward times; for
+   the kernels of phase 21 their launches on its distributed runs (EP
+   serving, the padded heads, the steps through the plan, the config
+   mesh's sweep; the runs they are held to are counted apart);
+23. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.  A copy
@@ -1025,20 +1052,9 @@ def vlm_phase(dev, card) -> dict:
     layout of an image after text."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.serving.engine import demo_requests
     t_phase = time.perf_counter()
     cfg = get_config(VLM_ARCH)
-    text, (rows, cols) = VLM_TEXT, VLM_GRID
-    if text + rows * cols != PROMPT2:
-        raise AssertionError("the wiring prompt must be PROMPT2 long")
-    r = torch.arange(rows * cols, device=dev) // cols
-    c = torch.arange(rows * cols, device=dev) % cols
-    t_ids = torch.arange(text, device=dev)
-    thw = torch.stack([torch.cat([t_ids, torch.full_like(r, text)]),
-                       torch.cat([t_ids, text + r]),
-                       torch.cat([t_ids, text + c])]).to(torch.int32)
-    batch = demo_requests(cfg, LM_BATCH, PROMPT2, seed=0, device=dev)
-    batch["positions"] = thw[:, None].expand(3, LM_BATCH, PROMPT2)
+    batch = vlm_wiring_batch(cfg, dev)
     n = cfg.num_layers
     out, params = lm_path(
         dev, card, 18, cfg, {"flash_attention": n, "decode_attention": 0},
@@ -1610,6 +1626,453 @@ def training_phase(dev, card) -> dict:
     say("phase 20 walls s " + ", ".join(
         f"{k} {v:.2f}" for k, v in walls.items()) + f" [{card}]")
     return out
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def flight_collectives(dev, card) -> dict:
+    """Phase 21 (a): the flight collectives on CUDA tensors over the
+    one-rank NCCL group: the rank adopts its own value (winner 0), is the
+    whole mean when healthy and (0, 0) when not, and is the k=1 mean."""
+    import torch
+    from repro_torch.core import distops
+    v = torch.arange(1, 7, dtype=torch.float32, device=dev)
+    adopted, winner = distops.first_finisher({"v": v, "h": v.bfloat16()},
+                                             2.5)
+    m0, n0 = distops.masked_mean(v, 0.0)
+    m1, n1 = distops.masked_mean(v, 1.0)
+    km = distops.k_of_n_mean(v, 1.0, 1)
+    got = dict(winner=int(winner), n_unhealthy=float(n0),
+               mean_unhealthy=float(m0.abs().max()), n_healthy=float(n1))
+    if not (got == dict(winner=0, n_unhealthy=0.0, mean_unhealthy=0.0,
+                        n_healthy=1.0) and torch.equal(adopted["v"], v)
+            and torch.equal(adopted["h"], v.bfloat16())
+            and torch.equal(m1, v) and torch.equal(km, v)):
+        raise AssertionError(f"flight collectives on one rank: {got}")
+    say(f"phase 21 flight collectives (NCCL, 1 rank, CUDA tensors): "
+        f"first_finisher adopts its own value (winner 0, a bf16 leaf too),"
+        f" masked_mean unhealthy (0, 0) and healthy (v, 1), k_of_n_mean "
+        f"k=1 its own value [{card}]")
+    return got
+
+
+def ep_serve(dev, card) -> dict:
+    """Phase 21 (b): granite-moe-3b-a800m served at full width through
+    ``moe_block_ep`` (``EPSpec`` over the (data=1, model=1) mesh and
+    ``Plan.constrain``) and without, phase 12's traffic: the greedy
+    tokens equal, the kernel launches equal, two exchanges a MoE layer a
+    step, each skipped (the identity over the one-rank model group); then
+    a prefill and WIRING_STEPS teacher-forced steps under EP with every
+    expert_matmul call held to its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import functional as dfn
+    from repro_torch.distributed.sharding import Plan
+    from repro_torch.launch.mesh import batch_axes, make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import (ServeConfig, ServingEngine,
+                                            demo_requests)
+    entries = kernel_entries()
+    cfg = get_config(MOE_ARCH)
+    mesh = make_host_mesh(1, 1)
+    plan = Plan(mesh, cfg)
+    ep = moe.EPSpec(mesh, batch_axes(mesh))
+    params = tfm.init_params(cfg, 0, device=dev)
+    batches = [demo_requests(cfg, LM_BATCH, PROMPT2, seed=i, device=dev)
+               for i in range(LM_BATCHES)]
+    wrappers = {name: entries[name][2] for name in
+                ("expert_matmul", "flash_attention", "decode_attention")}
+    runs = {}
+    for tag, kw in (("plain", {}), ("ep", dict(constrain=plan.constrain,
+                                               ep=ep))):
+        eng = ServingEngine(cfg, params, ServeConfig(
+            max_len=MAX_LEN2, decode_steps=DECODE_STEPS), device=dev, **kw)
+        eng.warmup(batches[0])
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        a2a, skip = dfn.all_to_all.calls, dfn.all_to_all.skipped
+        res = [eng.generate(b) for b in batches]
+        runs[tag] = dict(
+            tokens=np.stack([r.tokens for r in res]),
+            launches={n: fn.launches - before[n]
+                      for n, fn in wrappers.items()},
+            all_to_all=dfn.all_to_all.calls - a2a,
+            all_to_all_skipped=dfn.all_to_all.skipped - skip,
+            prefill_ms=[r.prefill_s * 1e3 for r in res],
+            decode_ms_per_step=[r.decode_s * 1e3 / DECODE_STEPS
+                                for r in res])
+        del eng
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    passes = LM_BATCHES * (1 + DECODE_STEPS)
+    plain, epr = runs["plain"], runs["ep"]
+    if not np.array_equal(plain["tokens"], epr["tokens"]):
+        raise AssertionError(f"{MOE_ARCH}: EP tokens differ from the "
+                             f"non-EP path's")
+    if epr["launches"] != plain["launches"] or \
+            plain["launches"]["expert_matmul"] != 3 * n_moe * passes or \
+            epr["all_to_all_skipped"] != 2 * n_moe * passes or \
+            epr["all_to_all"] or plain["all_to_all"] or \
+            plain["all_to_all_skipped"]:
+        raise AssertionError(f"{MOE_ARCH}: launches EP {epr['launches']} "
+                             f"vs {plain['launches']}, all-to-alls made "
+                             f"{epr['all_to_all']}, skipped "
+                             f"{epr['all_to_all_skipped']}")
+    say(f"phase 21 {MOE_ARCH} under EP ((data=1, model=1) DeviceMesh, "
+        f"NCCL): {LM_BATCHES} batches of {LM_BATCH} x {PROMPT2} prompts, "
+        f"{DECODE_STEPS} greedy steps: tokens equal the non-EP path's; "
+        f"launches {epr['launches']} (non-EP {plain['launches']}); "
+        f"{epr['all_to_all_skipped']} exchanges, each skipped on the "
+        f"one-rank model group ({epr['all_to_all']} made); prefill ms EP "
+        + ", ".join(f"{t:.1f}" for t in epr["prefill_ms"]) + " vs "
+        + ", ".join(f"{t:.1f}" for t in plain["prefill_ms"])
+        + "; decode ms/step EP "
+        + ", ".join(f"{t:.3f}" for t in epr["decode_ms_per_step"]) + " vs "
+        + ", ".join(f"{t:.3f}" for t in plain["decode_ms_per_step"])
+        + f" [{card}]")
+
+    # what the skip saves: one NCCL exchange on the one-rank group at
+    # decode's buffer (C=4), beside a copy of it, a call's pace in an
+    # event-timed loop
+    import torch.distributed as dist
+    from repro_torch.launch.bench_kernels import loop_ms
+    small = torch.zeros((cfg.moe.num_experts, 4, cfg.d_model),
+                        dtype=torch.bfloat16, device=dev)
+    recv = torch.empty_like(small)
+    group = mesh.get_group(ep.model_axis)
+    a2a_ms = loop_ms(lambda b: dist.all_to_all_single(recv, b, group=group),
+                     [(small,)], 200)
+    copy_ms = loop_ms(lambda b: b.clone(), [(small,)], 200)
+    say(f"phase 21 an NCCL all_to_all_single on the one-rank model group "
+        f"(the exchange the EP path skips there), decode's "
+        f"[{cfg.moe.num_experts}, 4, {cfg.d_model}] bf16 buffer: "
+        f"{a2a_ms:.4f} ms a call (event-timed loop; a clone of it "
+        f"{copy_ms:.4f} ms) [{card}]")
+
+    # the wiring under EP: every expert_matmul call against its plain version
+    _, _, kernel, plain_fn, _ = entries["expert_matmul"]
+    rec = [0, 0.0, 0.0]
+
+    def shadowed(buf, w):
+        out = kernel(buf, w)
+        err, share = close(out, plain_fn(buf, w), f"{MOE_ARCH} EP gmm")
+        rec[:] = rec[0] + 1, max(rec[1], err), max(rec[2], share)
+        return out
+    forced = torch.as_tensor(epr["tokens"][0][:, :WIRING_STEPS], device=dev)
+    with mock.patch.object(moe, "gmm", shadowed), torch.inference_mode():
+        a2a = dfn.all_to_all.skipped
+        _, cache = tfm.prefill(params, cfg, batches[0], MAX_LEN2,
+                               constrain=plan.constrain, ep=ep)
+        for i in range(WIRING_STEPS):
+            _, cache = tfm.decode_step(params, cfg, cache,
+                                       forced[:, i:i + 1],
+                                       constrain=plan.constrain, ep=ep)
+        wiring_a2a = dfn.all_to_all.skipped - a2a
+        del cache
+    if rec[0] != 3 * n_moe * (1 + WIRING_STEPS) or \
+            wiring_a2a != 2 * n_moe * (1 + WIRING_STEPS):
+        raise AssertionError(f"EP wiring made {rec[0]} expert_matmul calls "
+                             f"and skipped {wiring_a2a} exchanges")
+    say(f"phase 21 EP wiring (prefill + {WIRING_STEPS} teacher-forced "
+        f"steps): expert_matmul {rec[0]} calls on [E_loc, tp*C, D] "
+        f"buffers, each against its plain version: max abs err "
+        f"{rec[1]:.4g}, {rec[2]:.3f} of its bar at worst [{card}]")
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(plain={k: v for k, v in plain.items() if k != "tokens"},
+                ep={k: v for k, v in epr.items() if k != "tokens"},
+                all_to_all_ms=a2a_ms, clone_ms=copy_ms,
+                wiring_calls=rec[0], wiring_max_abs_err=rec[1],
+                wiring_share=rec[2], wiring_all_to_all=wiring_a2a)
+
+
+def vlm_wiring_batch(cfg, dev) -> dict:
+    """qwen2-vl-2b's wiring prompt: ``demo_requests``' embeddings of
+    PROMPT2 with M-RoPE ids of VLM_TEXT text positions, then a VLM_GRID
+    patch grid (Qwen2-VL's layout of an image after text)."""
+    import torch
+    from repro_torch.serving.engine import demo_requests
+    text, (rows, cols) = VLM_TEXT, VLM_GRID
+    if text + rows * cols != PROMPT2:
+        raise AssertionError("the wiring prompt must be PROMPT2 long")
+    r = torch.arange(rows * cols, device=dev) // cols
+    c = torch.arange(rows * cols, device=dev) % cols
+    t_ids = torch.arange(text, device=dev)
+    thw = torch.stack([torch.cat([t_ids, torch.full_like(r, text)]),
+                       torch.cat([t_ids, text + r]),
+                       torch.cat([t_ids, text + c])]).to(torch.int32)
+    batch = demo_requests(cfg, LM_BATCH, PROMPT2, seed=0, device=dev)
+    batch["positions"] = thw[:, None].expand(3, LM_BATCH, PROMPT2)
+    return batch
+
+
+def padded_heads(dev, card) -> dict:
+    """Phase 21 (c): qwen2-vl-2b with ``pad_heads=16`` (12 heads), its
+    prefill at full width through flash_attention on the padded heads;
+    the logits lie within RMS_K of the bf16 rounding spread from the
+    plain versions' float32 logits, as phase 18 holds the unpadded
+    ones."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+    entries = kernel_entries()
+    cfg = get_config(VLM_ARCH)
+    cfg16 = dataclasses.replace(cfg, pad_heads=16)
+    params = tfm.init_params(cfg, 0, device=dev)
+    batch = vlm_wiring_batch(cfg, dev)
+    mha, plain = entries["flash_attention"][2], entries["flash_attention"][3]
+
+    def logits(c, b, swap=None):
+        with contextlib.ExitStack() as st, torch.inference_mode():
+            if swap is not None:
+                st.enter_context(mock.patch.object(layers, "mha", swap))
+            out = tfm.prefill(params, c, b, PROMPT2 + 8)[0].float()
+        torch.cuda.synchronize()
+        return out
+    logits(cfg16, batch)                        # warm
+    n0 = mha.launches
+    t0 = time.perf_counter()
+    padded = logits(cfg16, batch)
+    padded_ms = (time.perf_counter() - t0) * 1e3
+    launches = mha.launches - n0
+    t0 = time.perf_counter()
+    unpadded = logits(cfg, batch)
+    unpadded_ms = (time.perf_counter() - t0) * 1e3
+    plain16 = logits(cfg, batch, plain)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    for w in params.parameters():
+        w.data = w.data.float()
+    b32 = {k: (t.float() if t.is_floating_point() else t)
+           for k, t in batch.items()}
+    plain32 = logits(cfg32, b32, plain)
+    del params
+
+    def rms(a, b):
+        return float((a - b).square().mean().sqrt())
+    noise, pad_rms = rms(plain16, plain32), rms(padded, plain32)
+    kern_rms, pad_vs_unpad = rms(unpadded, plain32), rms(padded, unpadded)
+    if padded.shape != (LM_BATCH, cfg.vocab_size) or \
+            not bool(torch.isfinite(padded).all()):
+        raise AssertionError(f"padded logits {padded.shape} not finite")
+    if launches != cfg.num_layers:
+        raise AssertionError(f"padded prefill launched flash_attention "
+                             f"{launches} times")
+    if not pad_rms <= RMS_K * noise:
+        raise AssertionError(
+            f"{VLM_ARCH} pad_heads=16: the logits lie further from float32 "
+            f"(rms {pad_rms}) than {RMS_K} x the plain versions' bf16 "
+            f"logits do (rms {noise})")
+    say(f"phase 21 {VLM_ARCH} pad_heads=16 ({cfg.num_heads} heads, "
+        f"{cfg.num_kv_heads} KV heads repeated and padded): prefill of "
+        f"{LM_BATCH} x {PROMPT2} through flash_attention on 16 heads "
+        f"({launches} launches) {padded_ms:.1f} ms (unpadded "
+        f"{unpadded_ms:.1f} ms); logits rms from the plain float32: padded "
+        f"{pad_rms:.4g}, unpadded {kern_rms:.4g}, plain bf16 {noise:.4g} "
+        f"(bar {RMS_K} x); padded vs unpadded "
+        f"rms {pad_vs_unpad:.4g} [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, padded_ms=padded_ms,
+                unpadded_ms=unpadded_ms, padded_rms=pad_rms,
+                unpadded_rms=kern_rms, bf16_rms=noise,
+                padded_vs_unpadded_rms=pad_vs_unpad)
+
+
+def dp_steps(dev, card) -> dict:
+    """Phase 21 (d): gemma-2b at full width, two steps through a plan over
+    the one-rank (data=1, model=1) mesh (``make_train_step(...,
+    plan=plan)``: the batch shard, the gradient mean over the batch axes
+    by NCCL) and the same two steps without the plan, from the same
+    seed: loss and grad norm bitwise equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distributed.sharding import Plan
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.step import (StepOptions, init_train_state,
+                                           make_train_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = get_config(TRAIN_ARCH)
+    oc = OptConfig(warmup_steps=5, total_steps=TRAIN_STEPS,
+                   state_dtype=cfg.optimizer_state_dtype)
+    shape = ShapeConfig("dp", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batches = [make_batch(cfg, shape, i) for i in range(2)]
+    plan = Plan(make_host_mesh(1, 1), cfg)
+    wrappers = {n: e[2] for n, e in kernel_entries().items()
+                if n in ("flash_attention", "expert_matmul")}
+    runs, launches = {}, {}
+    for tag, kw in (("plain", {}), ("plan", dict(plan=plan))):
+        state = init_train_state(cfg, oc, 0, device=dev)
+        step = make_train_step(cfg, oc, options=StepOptions(remat=False),
+                               device=dev, **kw)
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        recs = []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            recs.append(dict(loss=m["loss"].item(),
+                             grad_norm=m["grad_norm"].item(),
+                             ms=(time.perf_counter() - t0) * 1e3))
+        runs[tag] = recs
+        launches[tag] = {n: fn.launches - before[n]
+                         for n, fn in wrappers.items()}
+        del state, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    for a, b in zip(runs["plain"], runs["plan"]):
+        if (a["loss"], a["grad_norm"]) != (b["loss"], b["grad_norm"]):
+            raise AssertionError(f"{TRAIN_ARCH} data-parallel steps differ "
+                                 f"from the plain steps: {runs}")
+    say(f"phase 21 {TRAIN_ARCH} data-parallel steps through the plan (1-rank"
+        f" mesh, B={TRAIN_BATCH} x {TRAIN_SEQ}; {held_gb:.1f} GB held "
+        f"before): loss and grad norm bitwise equal to the steps without "
+        f"it: " + "; ".join(
+            f"step {i + 1} loss {a['loss']:.6f} grad norm "
+            f"{a['grad_norm']:.6f}, {a['ms']:.1f} ms (plain {p['ms']:.1f})"
+            for i, (a, p) in enumerate(zip(runs["plan"], runs["plain"])))
+        + f"; launches {launches['plan']} [{card}]")
+    return dict(runs, launches=launches["plan"],
+                plain_launches=launches["plain"])
+
+
+DIST_SWEEP_JOBS, DIST_SWEEP_TRIALS = 2048, 16
+
+
+def config_mesh_sweep(dev, card) -> dict:
+    """Phase 21 (e): the closed-loop load sweep (HA, keygen, three loads)
+    on the kernel routes through the one-rank config mesh, bitwise equal
+    to ``devices=None``."""
+    import torch
+    from repro_torch.kernels.maxplus_scan.ops import maxplus_entries
+    from repro_torch.kernels.queue_booking.ops import book_stream
+    from repro_torch.launch.mesh import make_config_mesh
+    from repro_torch.sim import experiments as X
+    from repro_torch.sim.vector_queue import keygen_queue, load_sweep
+    kw = dict(jobs=DIST_SWEEP_JOBS, trials=DIST_SWEEP_TRIALS, seed=0,
+              device=dev, booking_backend="kernel", scan="logdepth",
+              block=DIST_SWEEP_JOBS // LOGDEPTH_NB, summary_backend="kernel",
+              **X.HA)
+    mesh = make_config_mesh()
+    b0, m0 = book_stream.launches, maxplus_entries.launches
+    t0 = time.perf_counter()
+    got = load_sweep(keygen_queue(), devices=mesh, **kw)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    launches = {"queue_booking": book_stream.launches - b0,
+                "maxplus_scan": maxplus_entries.launches - m0}
+    t0 = time.perf_counter()
+    want = load_sweep(keygen_queue(), devices=None, **kw)
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    if json.dumps(got, sort_keys=True) != json.dumps(want, sort_keys=True):
+        raise AssertionError(f"the config-mesh sweep {got} != {want}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the sweep never launched: "
+                             f"{launches}")
+    say(f"phase 21 load sweep over the config mesh (1 rank, HA, "
+        f"{DIST_SWEEP_JOBS} jobs x {DIST_SWEEP_TRIALS} trials x 3 loads, "
+        f"kernel routes): bitwise equal to devices=None; launches "
+        f"{launches}; {mesh_s:.2f} s (devices=None {solo_s:.2f} s); ratios "
+        + ", ".join(f"{k} {v['mean_ratio']:.4f}" for k, v in got.items())
+        + f" [{card}]")
+    return dict(launches=launches, mesh_s=mesh_s, solo_s=solo_s)
+
+
+def dry_run(card) -> dict:
+    """Phase 21 (f): the dry run of every cell on both production meshes
+    (abstract, ``meta`` tensors)."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    recs = dryrun.run_all(meshes=(False, True), echo=lambda m: None)
+    wall = time.perf_counter() - t0
+    ok = sum(r["ok"] for r in recs)
+    if ok != len(recs):
+        raise AssertionError(f"dry run: {[r for r in recs if not r['ok']]}")
+    big = next(r for r in recs if r["arch"] == "llama4-maverick-400b-a17b"
+               and r["shape"] == "train_4k" and r["mesh"] == "2x16x16")
+    say(f"phase 21 dry run: {ok}/{len(recs)} cells ok on 16x16 and "
+        f"2x16x16 in {wall:.2f} s; llama4-maverick-400b-a17b train_4k on "
+        f"2x16x16: {big['param_bytes_per_device']:,} parameter bytes and "
+        f"{big['opt_bytes_per_device']:,} moment bytes per rank "
+        f"({big['params']:,} parameters) [{card}]")
+    return dict(cells=len(recs), ok=ok, wall_s=wall,
+                llama4_train_4k_2x16x16={
+                    k: big[k] for k in ("param_bytes_per_device",
+                                        "opt_bytes_per_device", "params")})
+
+
+def distributed_phase(dev, card) -> dict:
+    """Phase 21: the distributed slice on a one-rank NCCL group (see the
+    module docstring)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.maxplus_scan.ops import maxplus_entries
+    from repro_torch.kernels.queue_booking.ops import book_stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    walls, out = {}, {}
+    entries = kernel_entries()
+    counted = {"queue_booking": book_stream,
+               "maxplus_scan": maxplus_entries,
+               **{k: entries[k][2] for k in ("flash_attention",
+                                             "decode_attention",
+                                             "expert_matmul")}}
+    try:
+        for fn in counted.values():
+            fn.launches = 0
+        for key, fn in (("collectives", flight_collectives),
+                        ("ep_serve", ep_serve),
+                        ("padded_heads", padded_heads),
+                        ("dp_steps", dp_steps),
+                        ("sweep", config_mesh_sweep)):
+            t0 = time.perf_counter()
+            out[key] = fn(dev, card)
+            walls[key] = time.perf_counter() - t0
+        every = {k: fn.launches for k, fn in counted.items()}
+    finally:
+        dist.destroy_process_group()
+    # the distributed runs alone: EP serving, the padded heads' prefill,
+    # the steps through the plan and the sweep over the config mesh; the
+    # rest (the runs they are held to, warm-ups, the EP wiring) apart
+    out["launches"] = {k: 0 for k in counted}
+    for part in (out["ep_serve"]["ep"]["launches"],
+                 {"flash_attention": out["padded_heads"]["launches"]},
+                 out["dp_steps"]["launches"], out["sweep"]["launches"]):
+        for k, n in part.items():
+            out["launches"][k] += n
+    out["comparison_launches"] = {k: every[k] - out["launches"][k]
+                                  for k in counted}
+    t0 = time.perf_counter()
+    out["dry_run"] = dry_run(card)
+    walls["dry_run"] = time.perf_counter() - t0
+    walls["phase"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    if min(out["launches"].values()) < 1:
+        raise AssertionError(f"a kernel of the distributed path never "
+                             f"launched: {out['launches']}")
+    say(f"phase 21 launches on the distributed runs: {out['launches']}; "
+        f"in the runs they are held to, warm-ups and wiring: "
+        f"{out['comparison_launches']}; walls s "
+        + ", ".join(
+        f"{k} {v:.2f}" for k, v in walls.items()) + f" [{card}]")
+    return out
+
 
 def main() -> int:
     import torch
@@ -2361,7 +2824,11 @@ def main() -> int:
         return {name: got[kernel] for name, got in paths.items()
                 if kernel in got}
 
-    # ---- 21. kernels line --------------------------------------------------
+    # ---- 21. distributed ---------------------------------------------------
+    results["distributed"] = distributed_phase(dev, card)
+    dist_launches = results["distributed"]["launches"]
+
+    # ---- 22. kernels line --------------------------------------------------
     kernels = [
         {"name": "queue_booking", "route": "cuda",
          "source": "src/repro_torch/csrc/queue_booking.cu",
@@ -2370,7 +2837,8 @@ def main() -> int:
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes", "library_ms": None,
          "chain_model_ms": k1_chain, "alu_model_ms": k1_alu,
-         "sweep_launches": sweep["queue_booking"]},
+         "sweep_launches": sweep["queue_booking"],
+         "distributed_launches": dist_launches["queue_booking"]},
         {"name": "maxplus_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/maxplus_scan.cu",
          "replaces": "src/repro/kernels/maxplus_scan/kernel.py:57",
@@ -2382,6 +2850,7 @@ def main() -> int:
          "fault_launches": results["fault_engine"]["launches"],
          "fault_service_launches": results["fault_service"]["launches"],
          "sweep_launches": sweep["maxplus_scan"],
+         "distributed_launches": dist_launches["maxplus_scan"],
          "fault_sweep_launches":
              results["experiments"]["launches"]["fault_sweep"][
                  "maxplus_scan"],
@@ -2399,6 +2868,7 @@ def main() -> int:
                          "it has no logit cap, so it and ms_like_library "
                          "are at cap 0, window 0",
          "path_launches": path_launches("flash_attention"),
+         "distributed_launches": dist_launches["flash_attention"],
          "shapes": k3["rows"],
          "train_launches_per_step": train_launches("flash_attention"),
          "trainer_launches": trained["launches"]["flash_attention"],
@@ -2417,6 +2887,7 @@ def main() -> int:
                          "are device times (CUDA graph replay), caches "
                          "cold",
          "path_launches": path_launches("decode_attention"),
+         "distributed_launches": dist_launches["decode_attention"],
          "shapes": k4["rows"]},
         {"name": "expert_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/expert_matmul.cu",
@@ -2429,6 +2900,7 @@ def main() -> int:
                          "the MoE path's served launches (prefill C=2048, "
                          "bound by operations, and decode C=4, by bytes)",
          "shapes": k5["rows"],
+         "distributed_launches": dist_launches["expert_matmul"],
          "train_launches_per_step": train_launches("expert_matmul"),
          "train_shapes": grads["expert_matmul"]},
         {"name": "ssd_scan", "route": "cuda",

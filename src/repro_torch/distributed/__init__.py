@@ -1,1 +1,3 @@
-"""Distributed-optimisation helpers (one device: gradient transforms)."""
+"""The distributed runtime: the sharding plan (``sharding.py``), the
+expert-parallel block's differentiable collectives (``functional.py``)
+and the gradient transforms (``collectives.py``)."""

@@ -1,7 +1,6 @@
 """Gradient compression and straggler-tolerant aggregation transforms.
 
-The port of ``repro/distributed/collectives.py``; both act on one device
-(the collectives of a mesh are ROADMAP §1 item 13).  Each returns a
+The port of ``repro/distributed/collectives.py``.  Each returns a
 ``grad_transform`` for ``training.step.make_train_step``, acting on
 ``{parameter name: gradient}``:
 
@@ -10,6 +9,10 @@ The port of ``repro/distributed/collectives.py``; both act on one device
 - ``"int8"``: per-tensor symmetric int8 quantisation with stochastic
   rounding, from an explicit ``torch.Generator`` seeded by ``seed`` and
   advanced by every call, so the rounding is unbiased over steps.
+
+A step with a sharding plan (``training/step.py``) averages the
+gradients over the plan's batch axes first and hands the mean to the
+transform, as the reference's sharded step does.
 """
 from __future__ import annotations
 

@@ -61,12 +61,16 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))            # as jax.nn
 
 
-def mamba2_block(x, p, ssm: SSMConfig, *, mode: str, cache):
+def mamba2_block(x, p, ssm: SSMConfig, *, mode: str, cache, constrain=None):
     """x: [B, S, D] (S = 1 in decode).  ``mode="prefill"`` scans the
     prompt through the ``ssd_scan`` kernel and writes the conv tails and
     the final state into ``cache``; ``mode="decode"`` advances them by one
     token; ``mode="train"`` is a prefill without a cache (``cache`` None).
-    Returns (y [B, S, D], cache)."""
+    ``constrain(t, role)`` is the sharding plan's hook, applied at the
+    reference's ``ssm_inner`` points.  Returns (y [B, S, D], cache)."""
+    if constrain is None:
+        def constrain(t, role):
+            return t
     b, s, d = x.shape
     din = ssm.expand * d
     g, n = ssm.ngroups, ssm.state_dim
@@ -78,6 +82,8 @@ def mamba2_block(x, p, ssm: SSMConfig, *, mode: str, cache):
     B_ = x @ p["in_B"]                                        # [B,S,g*n]
     C_ = x @ p["in_C"]                                        # [B,S,g*n]
     dt = x @ p["in_dt"]                                       # [B,S,h]
+    xs = constrain(xs, "ssm_inner")
+    z = constrain(z, "ssm_inner")
     dt = _softplus(dt.float() + p["dt_bias"])
 
     if mode == "decode":
@@ -115,7 +121,7 @@ def mamba2_block(x, p, ssm: SSMConfig, *, mode: str, cache):
         cache["state"].copy_(st)
 
     y = y + xs.float() * p["D"][None, None, :, None]
-    y = y.reshape(b, s, din).to(x.dtype)
+    y = constrain(y.reshape(b, s, din).to(x.dtype), "ssm_inner")
     y = rms_norm(y * F.silu(z), p["norm"])                    # gated norm
     return y @ p["out_proj"], cache
 
@@ -134,6 +140,8 @@ def init_mamba2_params(d_model: int, ssm: SSMConfig, dtype, *,
     f32 = torch.float32
 
     def normal(shape, scale, dt=dtype):
+        if torch.device(device).type == "meta":
+            return torch.empty(shape, dtype=dt, device=device)
         return torch.randn(shape, generator=generator, device=device,
                            dtype=dt).mul_(scale)
 

@@ -7,21 +7,36 @@ slots past an expert's capacity are dropped), the experts' gated MLPs as
 three expert-batched GEMMs through the ``expert_matmul`` kernel
 (:func:`repro_torch.kernels.moe_gmm.ops.gmm`), the gate-weighted combine,
 an optional always-on shared expert (llama4) and the load-balancing aux
-loss.  The expert-parallel path (``moe_block_ep``, ``EPSpec``) waits for
-the distributed slice and is refused.
+loss.
+
+``moe_block_ep`` is the expert-parallel path over a ``DeviceMesh`` of
+(data, model) axes (:class:`EPSpec`): each rank holds its block of the
+batch over the data axes, replicated over the model axis, and the
+experts are split over the model axis.  Tokens are split over the model
+axis too where they divide (else every model rank dispatches the same
+tokens, duplicated compute, as in the reference); each rank dispatches
+its tokens into a local ``[E_pad, C, D]`` buffer, an all-to-all over the
+model group hands every expert owner its slots, the local experts' MLPs
+run through ``expert_matmul`` on ``[E_loc, tp*C, D]``, the reverse
+all-to-all and the local combine follow.  Experts whose count does not
+divide the model axis are padded with zero weights to
+``E_pad = ceil(E/tp)*tp``.  Parameters are replicated on every rank; the
+gradients of the experts a rank does not own come from their owners
+(``distributed/functional.py``).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed import functional as dfn
 from repro_torch.kernels.moe_gmm.ops import gmm
+from repro_torch.launch.mesh import axis_sizes, is_abstract
 from repro_torch.models.layers import mlp_block
-
-_EP_ITEM = "ROADMAP.md §1 item 13 (distributed)"
 
 
 def moe_capacity(num_tokens: int, moe: MoEConfig,
@@ -65,15 +80,22 @@ def _slot_ranks(slot_e, e_pad: int):
     return ranks
 
 
-def _dispatch_local(xt, topi, topw, e_pad: int, cap: int):
+def _dispatch_local(xt, topi, topw, e_pad: int, cap: int, *,
+                    limit: Optional[int] = None, offset=None):
     """Capacity dispatch.  xt: [T, D]; topi/topw: [T, k].  Returns buf
-    [e_pad, cap, D] and (slot_e, pos, keep, slot_t) for the combine."""
+    [e_pad, cap, D] and (slot_e, pos, keep, slot_t) for the combine.  A
+    slot is kept where its rank plus ``offset`` [k, e_pad] (at its
+    choice and expert) is below ``limit`` (default ``cap``)."""
     t, d = xt.shape
     k = topi.shape[1]
     slot_e = topi.t().reshape(-1)                 # [k*T] rank-major priority
     slot_t = torch.arange(t, device=xt.device).repeat(k)
     pos = _slot_ranks(slot_e, e_pad)
-    keep = pos < cap
+    if offset is None:
+        keep = pos < (cap if limit is None else limit)
+    else:
+        choice = torch.arange(k, device=xt.device).repeat_interleave(t)
+        keep = pos + offset[choice, slot_e] < limit
     # kept slots own distinct (expert, position) cells; dropped slots go to
     # a discarded last row (the reference adds zero to the expert's last
     # cell instead: the same buffer)
@@ -104,26 +126,64 @@ def _expert_mlps(buf, wg, wu, wd, variant: str):
     return gmm(act * h_up, wd)
 
 
-def _aux_loss(gates, topi, e: int):
+def _aux_loss(gates, topi, e: int, groups=(), n: int = 1):
+    """The load-balancing loss from the top-1 token fractions and the mean
+    gates; with ``groups``, of the whole batch: the fractions averaged
+    over the n equal blocks of the groups' ranks."""
     t = topi.shape[0]
     top1 = topi[:, 0]
     counts = torch.zeros(e, dtype=torch.float32, device=top1.device)
     frac_tokens = counts.scatter_add_(0, top1, torch.ones_like(
         top1, dtype=torch.float32)) / t
     frac_gates = gates.mean(dim=0)
+    if n > 1:
+        fracs = dfn.all_reduce_sum(torch.cat([frac_tokens, frac_gates]),
+                                   groups) / n
+        frac_tokens, frac_gates = fracs[:e], fracs[e:]
     return e * torch.sum(frac_tokens * frac_gates)
 
 
+def _global_offsets(topi, e: int, shard: dfn.BatchShard):
+    """[k, e] counts of the batch's slots that come before this block's
+    choice-j slots to expert e in the global priority order (choice
+    major, then the tokens in batch order) and are not its own earlier
+    slots: with a block's slot ranks they give the global ones."""
+    t, k = topi.shape
+    rows = torch.arange(k, device=topi.device)[:, None] * e + topi.t()
+    mine = torch.zeros(k * e, dtype=torch.int64, device=topi.device)
+    mine = mine.scatter_add_(0, rows.reshape(-1), torch.ones(
+        k * t, dtype=torch.int64, device=topi.device)).view(k, e)
+    every = dfn.gather_blocks(mine, shard)          # [blocks, k, e]
+    others = every.sum(0) - mine
+    return (torch.cumsum(others, 0) - others
+            + every[:shard.index].sum(0))
+
+
 def moe_mlp(x, p, moe: MoEConfig, mlp_variant: str, *,
-            capacity_factor: float = 1.25):
+            capacity_factor: float = 1.25, ep=None, constrain=None,
+            shard: Optional[dfn.BatchShard] = None):
     """The block's output without the aux loss (serving's forward): y [B, S,
-    D] and the routing (gates, topi) the aux loss reads."""
+    D] and the routing (gates, topi) the aux loss reads.  With ``shard``
+    (x is this rank's block of the batch) and no ``ep``, the capacity and
+    each slot's place in its expert's queue are the whole batch's, as
+    the reference's global view computes them: a block keeps the slots
+    that the whole batch's dispatch keeps."""
+    if ep is not None:
+        return _moe_ep(x, p, moe, mlp_variant, ep, constrain)
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     topw, topi, gates = _route(xt, p["router"], moe.top_k)
-    cap = moe_capacity(t, moe, capacity_factor)
-    buf, routing = _dispatch_local(xt, topi, topw, moe.num_experts, cap)
+    e = moe.num_experts
+    if shard is None or shard.size == 1:
+        cap = moe_capacity(t, moe, capacity_factor)
+        buf, routing = _dispatch_local(xt, topi, topw, e, cap)
+    else:
+        # a block keeps at most its tokens (one slot each an expert)
+        cap = moe_capacity(t * shard.size, moe, capacity_factor)
+        buf, routing = _dispatch_local(
+            xt, topi, topw, e, min(cap, t), limit=cap,
+            offset=_global_offsets(topi, e, shard))
     out_buf = _expert_mlps(buf, p["w_gate"], p["w_up"], p["w_down"],
                            mlp_variant)
     y = _combine_local(out_buf, routing, topw, t, d, x.dtype)
@@ -133,32 +193,135 @@ def moe_mlp(x, p, moe: MoEConfig, mlp_variant: str, *,
 
 
 def moe_block_global(x, p, moe: MoEConfig, mlp_variant: str, *,
-                     capacity_factor: float = 1.25):
-    """x: [B, S, D] -> (y [B, S, D], the load-balancing aux loss)."""
+                     capacity_factor: float = 1.25,
+                     shard: Optional[dfn.BatchShard] = None):
+    """x: [B, S, D] -> (y [B, S, D], the load-balancing aux loss).  With
+    ``shard``, x is this rank's block of the batch, and the dispatch and
+    the aux loss are the whole batch's (:func:`moe_mlp`)."""
     y, (gates, topi) = moe_mlp(x, p, moe, mlp_variant,
-                               capacity_factor=capacity_factor)
-    return y, _aux_loss(gates, topi, moe.num_experts)
+                               capacity_factor=capacity_factor, shard=shard)
+    if shard is None:
+        return y, _aux_loss(gates, topi, moe.num_experts)
+    return y, _aux_loss(gates, topi, moe.num_experts, shard.groups,
+                        shard.size)
 
 
+# --------------------------------------------------------------------------
+# expert parallelism
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
 class EPSpec:
-    """Expert-parallel execution context: not ported yet."""
+    """Expert-parallel execution context: a mesh (a ``DeviceMesh`` to run;
+    an ``AbstractMesh`` serves the dry run's sizes) and its axis names."""
+    mesh: Any
+    data_axes: Tuple[str, ...]
+    model_axis: str = "model"
+    capacity_factor: float = 1.25
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"expert parallelism is not ported yet; "
-                                  f"see {_EP_ITEM}")
+    @property
+    def dp(self) -> int:
+        sizes = axis_sizes(self.mesh)
+        n = 1
+        for a in self.data_axes:
+            n *= sizes[a]
+        return n
+
+    @property
+    def tp(self) -> int:
+        return axis_sizes(self.mesh)[self.model_axis]
+
+    def e_pad(self, num_experts: int) -> int:
+        return -(-num_experts // self.tp) * self.tp
+
+    def data_groups(self) -> list:
+        return [self.mesh.get_group(a) for a in self.data_axes]
 
 
-def moe_block_ep(*args, **kwargs):
-    raise NotImplementedError(f"moe_block_ep (expert parallelism) is not "
-                              f"ported yet; see {_EP_ITEM}")
+def _pad_experts(w, e_pad: int):
+    if w.shape[0] == e_pad:
+        return w
+    pad = w.new_zeros((e_pad - w.shape[0],) + tuple(w.shape[1:]))
+    return torch.cat([w, pad])
+
+
+def _moe_ep(x, p, moe: MoEConfig, mlp_variant: str, ep: EPSpec,
+            constrain=None):
+    """The expert-parallel forward on this rank's block x [B, S, D]:
+    (y [B, S, D], (gates, topi) of the block's tokens)."""
+    if is_abstract(ep.mesh):
+        raise ValueError("an EPSpec over an AbstractMesh plans a layout; "
+                         "running the block needs a DeviceMesh")
+    b, s, d = x.shape
+    t = b * s
+    tp = ep.tp
+    e_pad = ep.e_pad(moe.num_experts)
+    e_loc = e_pad // tp
+    # tokens split over the model axis where they divide (the reference's
+    # t % (dp * tp) == 0 over the global batch); else every model rank
+    # dispatches the same tokens and each expert sees tp copies
+    split = tp > 1 and t % tp == 0
+    t_loc = t // tp if split else t
+    cap = moe_capacity(t_loc, moe, ep.capacity_factor, num_buckets=e_pad)
+
+    xt = x.reshape(t, d)
+    if constrain is not None:
+        xt = constrain(xt, "moe_tokens")
+    topw, topi, gates = _route(xt, p["router"], moe.top_k)
+    group = ep.mesh.get_group(ep.model_axis)
+    me = ep.mesh.get_local_rank(ep.model_axis)
+    xt_l, topw_l, topi_l = xt, topw, topi
+    if split:
+        xt_l, topw_l = dfn.split(xt, group), dfn.split(topw, group)
+        topi_l = topi[me * t_loc:(me + 1) * t_loc]
+
+    # the owner of expert o*e_loc + e is model rank o; a rank's gradient of
+    # the experts it does not own comes from their owners (summed over the
+    # model group; 1/tp where every owner saw tp copies of each slot)
+    scale = 1.0 if split or tp == 1 else 1.0 / tp
+    ws = [dfn.reduce_grad(_pad_experts(p[n], e_pad), [group], scale)
+          [me * e_loc:(me + 1) * e_loc] for n in ("w_gate", "w_up",
+                                                   "w_down")]
+
+    buf, routing = _dispatch_local(xt_l, topi_l, topw_l, e_pad, cap)
+    # to the expert owners: [e_pad, C, D] -> [tp (source), e_loc, C, D]
+    # -> [e_loc, tp*C, D], the capacity in source order (the reference's
+    # all_to_all(split_axis=0, concat_axis=1, tiled=True))
+    buf = dfn.all_to_all(buf, group)
+    buf = buf.view(tp, e_loc, cap, d).transpose(0, 1).reshape(
+        e_loc, tp * cap, d)
+    out = _expert_mlps(buf, *ws, mlp_variant)
+    # back to the token owners: [e_loc, tp*C, D] -> [e_pad, C, D]
+    out = out.view(e_loc, tp, cap, d).transpose(0, 1).reshape(
+        tp * e_loc, cap, d)
+    out = dfn.all_to_all(out, group)
+    y = _combine_local(out, routing, topw_l, t_loc, d, x.dtype)
+    if split:
+        y = dfn.gather(y, group)
+    if moe.shared_expert_ff:
+        y = y + mlp_block(xt, p["shared"], mlp_variant)
+    return y.reshape(b, s, d), (gates, topi)
+
+
+def moe_block_ep(x, p, moe: MoEConfig, mlp_variant: str, ep: EPSpec, *,
+                 constrain=None):
+    """x: this rank's block [B, S, D] of the batch over ``ep.data_axes``
+    (the same on every rank of the model axis) -> (y [B, S, D], the whole
+    batch's load-balancing aux loss)."""
+    y, (gates, topi) = _moe_ep(x, p, moe, mlp_variant, ep, constrain)
+    if ep.dp == 1:
+        return y, _aux_loss(gates, topi, moe.num_experts)
+    return y, _aux_loss(gates, topi, moe.num_experts, ep.data_groups(),
+                        ep.dp)
 
 
 def moe_block(x, p, moe: MoEConfig, mlp_variant: str, *,
-              capacity_factor: float = 1.25, ep=None):
+              capacity_factor: float = 1.25, ep=None, constrain=None,
+              shard: Optional[dfn.BatchShard] = None):
     if ep is not None:
-        return moe_block_ep(x, p, moe, mlp_variant, ep)
+        return moe_block_ep(x, p, moe, mlp_variant, ep, constrain=constrain)
     return moe_block_global(x, p, moe, mlp_variant,
-                            capacity_factor=capacity_factor)
+                            capacity_factor=capacity_factor, shard=shard)
 
 
 def init_moe_params(d_model: int, moe: MoEConfig, dtype, *,
@@ -169,6 +332,8 @@ def init_moe_params(d_model: int, moe: MoEConfig, dtype, *,
     e, ff = moe.num_experts, moe.expert_ff
 
     def normal(shape, dt=dtype):
+        if torch.device(device).type == "meta":
+            return torch.empty(shape, dtype=dt, device=device)
         return torch.randn(shape, generator=generator, device=device,
                            dtype=dt).mul_(0.02)
 

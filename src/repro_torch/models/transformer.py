@@ -52,9 +52,22 @@ kernels' autograd Functions (``flash_attention``, ``expert_matmul`` and
 the stack in the backward (``torch.utils.checkpoint``), as the
 reference's ``jax.checkpoint`` does.
 
-What the port leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: ``pad_heads`` and the sharding hooks (``constrain``,
-``ep``).
+Sharding: ``constrain(t, role)`` (``distributed.sharding.Plan.constrain``)
+is called at the reference's roles (``act_heads``, ``act_kv_heads``,
+``act_ff_out``, ``act_resid``, ``logits``, ``ssm_inner``,
+``moe_tokens``); it redistributes a ``DTensor`` and passes the port's
+plain tensors through.  ``ep`` (``models.moe.EPSpec``) sends every MoE
+layer through ``moe_block_ep``.  ``cfg.pad_heads`` (a head count the
+model axis divides) makes the train and prefill attention repeat K/V to
+the full query heads and zero-pad q, k and v to ``pad_heads`` heads;
+``flash_attention`` runs on the padded heads and the output is sliced
+back (padded heads meet only padded heads).  The cache keeps the
+unpadded K/V heads.  ``shard`` (``distributed.functional.BatchShard``,
+the data-parallel step's) says that the batch is this rank's block of a
+larger one: :func:`loss_fn` then returns this block's share of the whole
+batch's loss (the ranks' mean is the whole batch's loss), and the MoE
+layers without ``ep`` dispatch and take their aux loss as over the
+whole batch.
 """
 from __future__ import annotations
 
@@ -68,6 +81,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import functional as dfn
 from repro_torch.kernels.decode_attention.ops import gqa_decode
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (attention, mlp_block, mrope_tables,
@@ -77,27 +91,12 @@ from repro_torch.models.moe import init_moe_params, moe_block, moe_mlp
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-_LEFT_OUT = {
-    "sharding": "ROADMAP.md §1 item 13 (distributed)",
-}
 _FULL_PASS = ("prefill", "train")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a config
-    knob the port leaves out."""
-    if cfg.pad_heads:
-        raise NotImplementedError(
-            f"{cfg.name}: pad_heads={cfg.pad_heads} is a sharding knob of "
-            f"the reference's mesh; see {_LEFT_OUT['sharding']}")
-
-
-def refuse_sharding(constrain=None, ep=None) -> None:
-    """The reference's sharding hooks have no counterpart yet."""
-    if constrain is not None or ep is not None:
-        raise NotImplementedError(
-            f"constrain/ep (sharding constraints, expert parallelism) are "
-            f"not ported yet; see {_LEFT_OUT['sharding']}")
+def _ID(t, role):
+    """The default ``constrain``: no sharding hint."""
+    return t
 
 
 # --------------------------------------------------------------------------
@@ -140,7 +139,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     given; ``device="meta"`` allocates nothing).  The numbers differ from
     the reference's threefry draws; the tests share weights through
     :func:`params_from_numpy` instead."""
-    check_supported(cfg)
     dev = resolve_device(device)
     gen = generator
     if gen is None and dev.type != "meta":     # meta: shapes only
@@ -150,6 +148,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
 
     def normal(*shape):
+        if dev.type == "meta":                 # shapes only: no draws
+            return torch.empty(shape, dtype=dt, device=dev)
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=dt).mul_(0.02)
 
@@ -230,15 +230,28 @@ def _attn_scale(cfg: ModelConfig) -> float:
     return float(base) ** -0.5
 
 
-def _project_qkv(x, p, cfg: ModelConfig, rope):
+def _project_qkv(x, p, cfg: ModelConfig, rope, constrain=_ID):
     """q, k, v [B, S, H, hd], q and k rotated by ``rope`` = (cos, sin),
     the RoPE or M-RoPE tables of the pass (:func:`_rope`)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    q = constrain((x @ p["wq"]).reshape(b, s, cfg.num_heads, hd),
+                  "act_heads")
+    k = constrain((x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd),
+                  "act_kv_heads")
+    v = constrain((x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd),
+                  "act_kv_heads")
     return rotate(q, *rope), rotate(k, *rope), v
+
+
+def _pad_heads(t, hq: int, target: int):
+    """[B, S, H, hd] repeated to ``hq`` heads (each K/V head serves its
+    group of queries, in order) and zero-padded to ``target``."""
+    b, s, h, hd = t.shape
+    if h != hq:
+        t = t[:, :, :, None].expand(b, s, h, hq // h, hd).reshape(
+            b, s, hq, hd)
+    return torch.nn.functional.pad(t, (0, 0, 0, target - hq))
 
 
 def decode_positions(idx: int, cache_len: int, window: int, device):
@@ -265,7 +278,7 @@ def _ring_write(buf, vals, start: int) -> None:
 
 
 def attention_block(x, p, cfg: ModelConfig, *, kind: str, mode: str,
-                    rope, cache=None):
+                    rope, cache=None, constrain=_ID):
     """The attention sublayer with its cache write.  x: [B, S, D]; rope:
     the (cos, sin) tables of the pass's positions (:func:`rope_tables`).
 
@@ -275,14 +288,15 @@ def attention_block(x, p, cfg: ModelConfig, *, kind: str, mode: str,
     ``mode="decode"`` writes the one new key at ``min(idx, C-1)`` (global)
     or ``idx mod C`` (local) and attends over the cache
     (``decode_attention``) with ``cache["kv_pos"]``.  ``mode="train"`` is
-    a prefill without a cache.
+    a prefill without a cache; with ``cfg.pad_heads`` both attend over
+    padded heads (see the module docstring).
     """
     b, s, _ = x.shape
     scale = _attn_scale(cfg)
     cap = cfg.attn_logit_softcap
     local = kind == "local_attn"
     window = cfg.window_size if local else 0
-    q, k, v = _project_qkv(x, p, cfg, rope)
+    q, k, v = _project_qkv(x, p, cfg, rope, constrain)
 
     if mode == "decode":
         idx = cache["index"]
@@ -299,7 +313,15 @@ def attention_block(x, p, cfg: ModelConfig, *, kind: str, mode: str,
     if mode not in _FULL_PASS:
         raise ValueError(f"unknown mode {mode!r}")
 
-    out = attention(q, k, v, window=window, logit_cap=cap, scale=scale)
+    hq = cfg.num_heads
+    if cfg.pad_heads and cfg.pad_heads > hq:
+        qp, kp, vp = (constrain(_pad_heads(t, hq, cfg.pad_heads),
+                                "act_heads") for t in (q, k, v))
+        out = attention(qp, kp, vp, window=window, logit_cap=cap,
+                        scale=scale)[:, :, :hq]
+    else:
+        out = attention(q, k, v, window=window, logit_cap=cap, scale=scale)
+    out = constrain(out, "act_heads")
     if cache is not None:
         if local:
             keep = min(window, s)
@@ -349,7 +371,7 @@ def cross_attention_block(x, p, cfg: ModelConfig, *, mode: str, cache,
 # --------------------------------------------------------------------------
 
 def _block_apply(x, p, cfg: ModelConfig, i: int, *, mode, rope,
-                 cache=None):
+                 cache=None, constrain=_ID, ep=None, shard=None):
     """One layer of the stack; returns (x, cache, aux loss).  The MoE
     layers' load-balancing loss is a training term: ``mode="train"``
     returns it, serving does not compute it and returns 0."""
@@ -357,40 +379,44 @@ def _block_apply(x, p, cfg: ModelConfig, i: int, *, mode, rope,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
         y, cache = m2.mamba2_block(h, p["ssm"], cfg.ssm, mode=mode,
-                                   cache=cache)
+                                   cache=cache, constrain=constrain)
         return x + y, cache, 0.0
     y, cache = attention_block(h, p["attn"], cfg, kind=kind, mode=mode,
-                               rope=rope, cache=cache)
+                               rope=rope, cache=cache, constrain=constrain)
     x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     aux = 0.0
     if "moe" in p and mode == "train":
-        y, aux = moe_block(h, p["moe"], cfg.moe, cfg.mlp_variant)
+        y, aux = moe_block(h, p["moe"], cfg.moe, cfg.mlp_variant, ep=ep,
+                           constrain=constrain, shard=shard)
     elif "moe" in p:
-        y, _ = moe_mlp(h, p["moe"], cfg.moe, cfg.mlp_variant)
+        y, _ = moe_mlp(h, p["moe"], cfg.moe, cfg.mlp_variant, ep=ep,
+                       constrain=constrain)
     else:
-        y = mlp_block(h, p["mlp"], cfg.mlp_variant)
+        y = constrain(mlp_block(h, p["mlp"], cfg.mlp_variant), "act_ff_out")
     return x + y, cache, aux
 
 
-def _shared_block_apply(x, p, cfg: ModelConfig, *, mode, rope, cache):
+def _shared_block_apply(x, p, cfg: ModelConfig, *, mode, rope, cache,
+                        constrain=_ID):
     """zamba2's shared attention+MLP block (global attention)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     y, cache = attention_block(h, p["attn"], cfg, kind="attn", mode=mode,
-                               rope=rope, cache=cache)
+                               rope=rope, cache=cache, constrain=constrain)
     x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + mlp_block(h, p["mlp"], cfg.mlp_variant), cache
 
 
 def _decoder_block_apply(x, p, cfg: ModelConfig, *, mode, rope, cache,
-                         enc_out):
+                         enc_out, constrain=_ID):
     """An encoder-decoder's decoder layer: causal self-attention (cache
     ``cache["self"]``), cross attention over the encoder, the MLP."""
     self_cache = cache.get("self") if cache else None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     y, self_cache = attention_block(h, p["attn"], cfg, kind="attn",
-                                    mode=mode, rope=rope, cache=self_cache)
+                                    mode=mode, rope=rope, cache=self_cache,
+                                    constrain=constrain)
     x = x + y
     h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
     x = x + cross_attention_block(h, p["cross"], cfg, mode=mode,
@@ -435,7 +461,8 @@ def _remat_kwargs(remat_policy: Optional[str]) -> dict:
 
 def apply_stack(params, cfg: ModelConfig, x, *, mode, positions,
                 caches=None, enc_out=None, remat: bool = False,
-                remat_policy: Optional[str] = None):
+                remat_policy: Optional[str] = None, constrain=_ID, ep=None,
+                shard=None):
     """x: [B, S, D] embeddings; positions: [B, S], or [3, B, S] for
     M-RoPE (None for an attention-free stack); ``enc_out``: the encoder's
     output [B, Se, D] at an encoder-decoder's prefill or train pass.
@@ -443,7 +470,8 @@ def apply_stack(params, cfg: ModelConfig, x, *, mode, positions,
     sum in ``mode="train"`` (0 otherwise).  With ``remat`` and
     ``mode="train"`` each layer's ``_block_apply`` is recomputed in the
     backward, as in the reference (zamba2's shared block and an
-    encoder-decoder's layers are not)."""
+    encoder-decoder's layers are not).  ``constrain``, ``ep`` and
+    ``shard``: see the module docstring."""
     rope = _rope(cfg, positions)
     new_caches: Dict[str, Any] = {}
     every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
@@ -456,28 +484,32 @@ def apply_stack(params, cfg: ModelConfig, x, *, mode, positions,
         aux = 0.0
         if cfg.is_encoder_decoder:
             x, c = _decoder_block_apply(x, p, cfg, mode=mode, rope=rope,
-                                        cache=c, enc_out=enc_out)
+                                        cache=c, enc_out=enc_out,
+                                        constrain=constrain)
         elif remat_kw is not None:
             x, c, aux = ckpt.checkpoint(functools.partial(
-                _block_apply, p=p, cfg=cfg, i=i, mode="train", rope=rope),
-                x, **remat_kw)
+                _block_apply, p=p, cfg=cfg, i=i, mode="train", rope=rope,
+                constrain=constrain, ep=ep, shard=shard), x, **remat_kw)
         else:
             x, c, aux = _block_apply(x, p, cfg, i, mode=mode, rope=rope,
-                                     cache=c)
+                                     cache=c, constrain=constrain, ep=ep,
+                                     shard=shard)
         aux_total = aux_total + aux
         if c is not None:
             new_caches[f"layer_{i}"] = c
+        x = constrain(x, "act_resid")
         if every and (i + 1) % every == 0:
             name = f"shared_{(i + 1) // every - 1}"
             sc = caches.get(name) if caches else None
             x, sc = _shared_block_apply(x, params["shared_block"], cfg,
-                                        mode=mode, rope=rope, cache=sc)
+                                        mode=mode, rope=rope, cache=sc,
+                                        constrain=constrain)
             if sc is not None:
                 new_caches[name] = sc
     return x, new_caches, aux_total
 
 
-def encode(params, cfg: ModelConfig, enc_emb):
+def encode(params, cfg: ModelConfig, enc_emb, constrain=_ID):
     """The bidirectional encoder over precomputed frame embeddings
     ``enc_emb`` [B, Se, D]: RoPE at ``arange(Se)``, self-attention through
     ``flash_attention`` with ``causal=False`` and no cap, the MLP, and the
@@ -489,11 +521,12 @@ def encode(params, cfg: ModelConfig, enc_emb):
     scale = _attn_scale(cfg)
     for p in params["encoder"]["layers"]:
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = _project_qkv(h, p["attn"], cfg, rope)
+        q, k, v = _project_qkv(h, p["attn"], cfg, rope, constrain)
         out = attention(q, k, v, causal=False, scale=scale)
         x = x + out.reshape(b, s, -1) @ p["attn"]["wo"]
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_block(h, p["mlp"], cfg.mlp_variant)
+        x = constrain(x + mlp_block(h, p["mlp"], cfg.mlp_variant),
+                      "act_resid")
     return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
@@ -510,13 +543,13 @@ def _embed(params, cfg: ModelConfig, inputs):
     return params["embed"][inputs].to(DTYPES[cfg.dtype])
 
 
-def _logits(params, cfg: ModelConfig, h):
+def _logits(params, cfg: ModelConfig, h, constrain=_ID):
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = h @ head
     if cfg.final_logit_softcap:
         logits = softcap(logits.float(),
                          cfg.final_logit_softcap).to(h.dtype)
-    return logits
+    return constrain(logits, "logits")
 
 
 def cross_entropy(logits, labels):
@@ -532,16 +565,19 @@ def cross_entropy(logits, labels):
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False,
-            remat_policy: Optional[str] = None, constrain=None, ep=None):
+            remat_policy: Optional[str] = None, constrain=_ID, ep=None,
+            shard=None):
     """The training loss.  batch: {"tokens" [B, S] or "embeddings" [B, S,
     D], "labels" [B, S], optional "positions", "enc_emb" (an
     encoder-decoder) and "loss_weight" [B] (Raptor's per-sample weights:
     0 drops a failed or pre-empted flight member's samples and the mean
     renormalises over the rest)}.  Returns (ce + 0.01 * aux, {"ce",
-    "aux"}), float32 scalars."""
-    check_supported(cfg)
-    refuse_sharding(constrain, ep)
-    enc_out = (encode(params, cfg, batch["enc_emb"])
+    "aux"}), float32 scalars.  With ``shard`` the batch is this rank's
+    block: ``ce`` is the block's weighted sum over the whole batch's
+    weight sum, times the number of blocks, so that the blocks' mean is
+    the whole batch's ``ce`` (a block whose weights are all 0 gives 0),
+    and ``aux`` is the whole batch's."""
+    enc_out = (encode(params, cfg, batch["enc_emb"], constrain)
                if cfg.is_encoder_decoder else None)
     x = _embed(params, cfg, batch["tokens"] if "tokens" in batch
                else batch["embeddings"])
@@ -553,15 +589,23 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False,
             positions = positions[None].expand(3, b, s)
     h, _, aux = apply_stack(params, cfg, x, mode="train",
                             positions=positions, enc_out=enc_out,
-                            remat=remat, remat_policy=remat_policy)
+                            remat=remat, remat_policy=remat_policy,
+                            constrain=constrain, ep=ep, shard=shard)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    per_tok = cross_entropy(_logits(params, cfg, h), batch["labels"])
+    per_tok = cross_entropy(_logits(params, cfg, h, constrain),
+                            batch["labels"])
     w = batch.get("loss_weight")
+    blocks = 1 if shard is None else shard.size
     if w is not None:
         wt = w.float()[:, None]
-        ce = (per_tok * wt).sum() / torch.clamp(wt.sum() * per_tok.shape[1],
+        total = wt.sum()
+        if blocks > 1:
+            total = dfn.all_reduce_sum(total.detach(), shard.groups)
+        ce = (per_tok * wt).sum() / torch.clamp(total * per_tok.shape[1],
                                                 min=1.0)
+        if blocks > 1:
+            ce = ce * blocks
     else:
         ce = per_tok.mean()
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
@@ -574,7 +618,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
     Mamba2 layer its conv tails and state, each of the hybrid's shared
     block applications ``max_len`` slots, an encoder-decoder layer
     ``max_len`` slots of its own keys and ``enc_len`` of the encoder's."""
-    check_supported(cfg)
     dev = resolve_device(device)
     dt = DTYPES[cfg.dtype]
     hd = cfg.resolved_head_dim
@@ -613,14 +656,12 @@ def clone_cache(caches: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def prefill(params, cfg: ModelConfig, batch, max_len: int, *,
-            constrain=None, ep=None):
+            constrain=_ID, ep=None):
     """Run the full prompt; return (last-position logits [B, V], filled
     cache).  ``batch``: {"tokens": [B, S] int or "embeddings": [B, S, D],
     optional "positions" ([B, S], or [3, B, S] for M-RoPE), and for an
     encoder-decoder "enc_emb": [B, Se, D]}."""
-    check_supported(cfg)
-    refuse_sharding(constrain, ep)
-    enc_out = (encode(params, cfg, batch["enc_emb"])
+    enc_out = (encode(params, cfg, batch["enc_emb"], constrain)
                if cfg.is_encoder_decoder else None)
     x = _embed(params, cfg, batch["tokens"] if "tokens" in batch
                else batch["embeddings"])
@@ -635,9 +676,10 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int, *,
                         device=x.device)
     h, new_caches, _ = apply_stack(params, cfg, x, mode="prefill",
                                    positions=positions, caches=caches,
-                                   enc_out=enc_out)
+                                   enc_out=enc_out, constrain=constrain,
+                                   ep=ep)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, cfg, h[:, -1:])
+    logits = _logits(params, cfg, h[:, -1:], constrain)
     new_caches["index"] = s
     return logits[:, 0], new_caches
 
@@ -654,13 +696,11 @@ _STEP_KEYS = ("index", "kv_pos", "cross_kv_pos")
 
 
 def decode_step(params, cfg: ModelConfig, caches, tokens, *,
-                constrain=None, ep=None):
+                constrain=_ID, ep=None):
     """One decode step.  tokens: [B, 1] int (or [B, 1, D] embeddings for
     a model with ``embedding_inputs``).  Writes the new keys and the
     Mamba2 states into ``caches`` in place; returns (logits [B, V], caches
     with index + 1)."""
-    check_supported(cfg)
-    refuse_sharding(constrain, ep)
     x = _embed(params, cfg, tokens)
     b = x.shape[0]
     idx = int(caches["index"])
@@ -701,9 +741,10 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, *,
         else:                                # a Mamba2 layer's cache
             run_caches[name] = c
     h, new_caches, _ = apply_stack(params, cfg, x, mode="decode",
-                                   positions=positions, caches=run_caches)
+                                   positions=positions, caches=run_caches,
+                                   constrain=constrain, ep=ep)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, cfg, h)
+    logits = _logits(params, cfg, h, constrain)
 
     def strip(c):
         return {k: strip(t) if isinstance(t, dict) else t

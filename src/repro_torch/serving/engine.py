@@ -113,15 +113,16 @@ def _prompt_len(batch: Dict[str, Any]) -> int:
 
 
 class ServingEngine:
-    """Batched generation on ``device`` (the CUDA card unless given)."""
+    """Batched generation on ``device`` (the CUDA card unless given);
+    ``constrain`` and ``ep`` go to the steps (``serving/step.py``)."""
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig, *,
-                 device=None):
+                 device=None, constrain=None, ep=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sc = sc
-        self._prefill = make_prefill_step(cfg, sc.max_len)
-        self._decode = make_decode_step(cfg)
+        self._prefill = make_prefill_step(cfg, sc.max_len, constrain, ep)
+        self._decode = make_decode_step(cfg, constrain, ep)
         self.params = params.to(self.device)
         self._rng = np.random.default_rng(sc.seed)
         self._warmed = set()        # batch signatures already run once

@@ -17,22 +17,24 @@ from repro_torch.models import transformer as tfm
 
 def make_prefill_step(cfg: ModelConfig, max_len: int, constrain=None,
                       ep=None):
-    tfm.check_supported(cfg)
-    tfm.refuse_sharding(constrain, ep)
+    """``constrain``: the sharding plan's hook (``Plan.constrain``);
+    ``ep``: an ``EPSpec`` for expert parallelism (models/moe.py)."""
+    constrain = constrain or tfm._ID
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        return tfm.prefill(params, cfg, batch, max_len)
+        return tfm.prefill(params, cfg, batch, max_len, constrain=constrain,
+                           ep=ep)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, constrain=None, ep=None):
-    tfm.check_supported(cfg)
-    tfm.refuse_sharding(constrain, ep)
+    constrain = constrain or tfm._ID
 
     @torch.inference_mode()
     def decode_step(params, caches, tokens):
-        return tfm.decode_step(params, cfg, caches, tokens)
+        return tfm.decode_step(params, cfg, caches, tokens,
+                               constrain=constrain, ep=ep)
     return decode_step
 
 

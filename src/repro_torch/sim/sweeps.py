@@ -21,8 +21,13 @@ the host in one transfer: a closed-loop sweep equals each configuration's
 and AZ count equal its bucket's pads its ``VectorFlightSim.run_pair``,
 bit for bit (tests/test_torch_sweeps.py).
 
-A plan runs on one device (``devices=None`` or ``1``); spreading the
-configuration axis over several cards is ROADMAP item 13.
+``run(devices=...)`` spreads the configuration axis over the ranks of a
+1-D ``("config",)`` mesh (``launch.mesh.make_config_mesh``): each bucket's
+axis is padded with replicas of its first configuration, each rank runs
+its slice with the bucket's generator seeded as every rank seeds it, and
+an all-gather hands every rank the whole grid.  The axis is pure
+batching, so the result is bit-identical for any rank count
+(tests/test_torch_distributed.py).
 """
 from __future__ import annotations
 
@@ -30,12 +35,15 @@ import dataclasses
 from typing import Callable, Dict, List, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
+from repro_torch.launch.mesh import make_config_mesh
 from repro_torch.sim.cluster import OverheadModel, lognormal_params
-from repro_torch.sim.vector import (VectorWorkload, _raptor_sweep_core,
-                                    _stock_sweep_core, bucket_by_pad,
-                                    host_summary, summary_row)
+from repro_torch.sim.vector import (SUMMARY_KEYS, VectorWorkload,
+                                    _raptor_sweep_core, _stock_sweep_core,
+                                    bucket_by_pad, host_summary,
+                                    summary_row)
 
 
 def _summary_rows(resp, ok) -> torch.Tensor:
@@ -72,7 +80,10 @@ class SweepPlan:
 
     ``run(devices=...)`` executes every bucket on the plan's device
     (``None``: the CUDA card) and hands each config's per-tag summaries to
-    ``finalize(config, parts) -> dict``.
+    ``finalize(config, parts) -> dict``.  ``devices``: ``None`` or 1 (this
+    process alone), a 1-D ``DeviceMesh``, or a rank count (a config mesh
+    over the initialized group, which must have that many ranks); every
+    rank of the mesh calls ``run`` and gets the whole grid.
     """
 
     def __init__(self, name: str, configs, tasks, finalize, device=None):
@@ -95,20 +106,41 @@ class SweepPlan:
                     f"plan {self.name!r}: tag {tag!r} buckets cover "
                     f"{len(set(seen))}/{len(self.configs)} grid points")
 
+    def _sharded(self, task, gen, mesh, dev) -> torch.Tensor:
+        """The bucket's rows over the config mesh: rank r runs configs
+        ``[r * per, (r + 1) * per)`` of the padded axis, and never a local
+        batch of one (except a one-config bucket), as in the reference."""
+        world, me = mesh.size(), mesh.get_local_rank()
+        n = len(task.idxs)
+        d = 1 if n == 1 else max(1, min(world, n // 2))
+        per = -(-n // d)
+        cfg = tuple(list(v) + [v[0]] * (per * d - n) for v in task.cfg)
+        if me < d:
+            local = task.core(gen, tuple(v[me * per:(me + 1) * per]
+                                         for v in cfg), task.shared)
+        else:                       # no configs here: zeros to the gather
+            local = torch.zeros((per, len(SUMMARY_KEYS)),
+                                dtype=torch.float64, device=dev)
+        out = torch.empty((world * per,) + tuple(local.shape[1:]),
+                          dtype=local.dtype, device=dev)
+        dist.all_gather_into_tensor(out, local.contiguous(),
+                                    group=mesh.get_group())
+        return out[:n]
+
     def run(self, devices=None) -> List[dict]:
-        if devices is not None:
-            n = devices if isinstance(devices, int) else len(devices)
-            if n > 1:
-                raise NotImplementedError(
-                    f"plan {self.name!r}: devices={devices!r} — a sweep "
-                    "runs on one device; spreading its configuration "
-                    "axis over several is ROADMAP item 13")
+        mesh = None
+        if devices is not None and not (isinstance(devices, int)
+                                        and devices == 1):
+            mesh = (make_config_mesh(devices) if isinstance(devices, int)
+                    else devices)
         dev = resolve_device(self.device)
         rows = []
         for task in self.tasks:
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(task.key))
-            rows.append(task.core(gen, task.cfg, task.shared))
+            rows.append(task.core(gen, task.cfg, task.shared)
+                        if mesh is None else
+                        self._sharded(task, gen, mesh, dev))
         # ONE host transfer for the whole plan
         host = torch.cat(rows).cpu()
         parts: List[Dict[str, dict]] = [{} for _ in self.configs]

@@ -80,9 +80,11 @@ def first_arrival_weights(num_micro: int, flight: int,
 
 
 def make_raptor_train_step(cfg: ModelConfig, oc: OptConfig, *,
-                           constrain=None, ep=None, remat: bool = True,
-                           device=None):
+                           plan=None, constrain=None, ep=None,
+                           remat: bool = True, device=None):
     """The plain step: flight behaviour enters only through
-    ``batch["loss_weight"]``, built by :func:`signals_to_weights`."""
-    return make_train_step(cfg, oc, constrain=constrain, ep=ep,
+    ``batch["loss_weight"]``, built by :func:`signals_to_weights`; with
+    ``plan`` each pod's rank takes its shard, and the loss renormalises
+    over the surviving pods' samples of the whole batch."""
+    return make_train_step(cfg, oc, plan=plan, constrain=constrain, ep=ep,
                            options=StepOptions(remat=remat), device=device)

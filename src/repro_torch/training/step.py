@@ -8,6 +8,19 @@ gradient of :func:`repro_torch.models.transformer.loss_fn` with
 updates the state in place (:func:`~repro_torch.training.optimizer
 .adamw_update`).  ``state = {"params": ParamTree, "opt": {"mu", "nu":
 {name: tensor}, "step": int32 tensor}}``.
+
+Data parallelism: with ``plan=`` a sharding plan over a ``DeviceMesh``,
+every rank takes its block of the global batch over the plan's batch
+axes (``Plan.local_batch``; a batch that does not divide stays whole on
+every rank), the loss is the block's share of the whole batch's
+(``loss_fn(..., shard=)``: the ``loss_weight`` renormalisation over the
+whole batch, the MoE layers' dispatch and aux loss as over the whole
+batch), and the step averages the gradients (and the loss metrics) over
+those axes before ``grad_transform`` -- the gradient of the reference's
+step on the whole batch.  Parameters and moments stay replicated on
+every rank.  ``constrain`` alone (the reference's
+``constrain=plan.constrain``) is a layout hint: the step then runs the
+whole batch on every rank.
 """
 from __future__ import annotations
 
@@ -16,9 +29,13 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.functional import BatchShard
+from repro_torch.distributed.sharding import Plan
+from repro_torch.launch.mesh import is_abstract
 from repro_torch.models import transformer as tfm
 from repro_torch.training.optimizer import (OptConfig, adamw_update,
                                             init_opt_state)
@@ -26,20 +43,35 @@ from repro_torch.training.optimizer import (OptConfig, adamw_update,
 
 @dataclasses.dataclass(frozen=True)
 class StepOptions:
-    """The reference's step options that act on one device: compression
-    and straggler weights enter through ``grad_transform`` instead."""
+    """The reference's step options.  ``grad_compression`` and
+    ``raptor_k_of_n`` are the reference's fields, which its
+    ``make_train_step`` never reads; :func:`make_train_step` refuses
+    them set, since compression is ``grad_transform=compress_grads(...)``
+    (``distributed/collectives.py``) and the k fastest pods are
+    ``loss_weight`` from ``training.raptor_dp.signals_to_weights``."""
     remat: bool = True
     remat_policy: Optional[str] = None       # None (full) | "dots"
+    grad_compression: Optional[str] = None   # refused: see above
+    raptor_k_of_n: Optional[tuple] = None    # refused: see above
 
 
 def make_loss_fn(cfg: ModelConfig, constrain=None, remat: bool = True,
                  ep=None, remat_policy: Optional[str] = None):
-    tfm.refuse_sharding(constrain, ep)
+    constrain = constrain or tfm._ID
 
-    def loss(params, batch):
+    def loss(params, batch, shard: Optional[BatchShard] = None):
         return tfm.loss_fn(params, cfg, batch, remat=remat,
-                           remat_policy=remat_policy)
+                           remat_policy=remat_policy, constrain=constrain,
+                           ep=ep, shard=shard)
     return loss
+
+
+def _mean_over(tensors, shard: BatchShard) -> None:
+    """Average each tensor in place over the blocks of the batch."""
+    for t in tensors:
+        for group in shard.groups:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        t.div_(shard.size)
 
 
 def batch_to(cfg: ModelConfig, batch, device) -> Dict[str, torch.Tensor]:
@@ -57,7 +89,8 @@ def batch_to(cfg: ModelConfig, batch, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def make_train_step(cfg: ModelConfig, oc: OptConfig, *, constrain=None,
+def make_train_step(cfg: ModelConfig, oc: OptConfig, *,
+                    plan: Optional[Plan] = None, constrain=None,
                     options: StepOptions = StepOptions(),
                     grad_transform: Optional[Callable] = None, ep=None,
                     device=None):
@@ -67,7 +100,20 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, *, constrain=None,
     given: without one this raises) by :func:`batch_to`; the state is
     updated in place.  ``grad_transform(grads)`` ({name: gradient} ->
     the same) is the injection point for compression and straggler
-    weights (``repro_torch.distributed.collectives``)."""
+    weights (``repro_torch.distributed.collectives``).  With ``plan`` (a
+    plan over a ``DeviceMesh``) the step is data-parallel, and
+    ``constrain`` defaults to ``plan.constrain`` (module docstring)."""
+    for name in ("grad_compression", "raptor_k_of_n"):
+        if getattr(options, name) is not None:
+            raise ValueError(
+                f"StepOptions.{name} is the reference's unread field; pass "
+                f"grad_transform=compress_grads(...) for compression, and "
+                f"loss_weight from signals_to_weights(..., k=) for k-of-n")
+    if plan is not None:
+        if is_abstract(plan.mesh):
+            raise ValueError("a data-parallel step needs a plan over a "
+                             "DeviceMesh; this plan's mesh is abstract")
+        constrain = constrain or plan.constrain
     dev = resolve_device(device)
     loss_fn = make_loss_fn(cfg, constrain, options.remat, ep=ep,
                            remat_policy=options.remat_policy)
@@ -75,10 +121,20 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, *, constrain=None,
     def train_step(state, batch):
         params = state["params"]
         names, leaves = zip(*params.named_parameters())
+        batch = batch_to(cfg, batch, dev)
+        shard = None
+        if plan is not None:
+            shard = plan.batch_shard(batch["labels"].shape[0])
+        if shard is not None:
+            batch = plan.local_batch(batch)
         with torch.enable_grad():
-            loss, metrics = loss_fn(params, batch_to(cfg, batch, dev))
+            loss, metrics = loss_fn(params, batch, shard)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
+        if shard is not None:
+            loss, metrics = loss.detach().clone(), {
+                k: v.detach().clone() for k, v in metrics.items()}
+            _mean_over([*grads, loss, *metrics.values()], shard)
         grads = dict(zip(names, grads))
         if grad_transform is not None:
             grads = grad_transform(grads)

@@ -37,6 +37,34 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_port_never_imports_torch_testing_internals():
+    """No module of the port imports ``torch.testing._internal`` (PyTorch's
+    own test harness; ``import torch`` may load it, the port must not
+    lean on it), and the distributed modules are among those checked."""
+    import ast
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    names = {f.relative_to(SRC).as_posix() for f in files}
+    for need in ("repro_torch/core/distops.py",
+                 "repro_torch/distributed/sharding.py",
+                 "repro_torch/distributed/functional.py",
+                 "repro_torch/launch/mesh.py", "repro_torch/launch/specs.py",
+                 "repro_torch/launch/dryrun.py"):
+        assert need in names, need
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            mods = ([a.name for a in node.names]
+                    if isinstance(node, ast.Import) else
+                    [node.module or ""] if isinstance(node, ast.ImportFrom)
+                    else [])
+            bad += [f"{f.name}: {m}" for m in mods
+                    if m.startswith("torch.testing._internal")
+                    or (m == "torch.testing" and isinstance(
+                        node, ast.ImportFrom) and any(
+                            a.name == "_internal" for a in node.names))]
+    assert not bad, bad
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch._device import resolve_device
     from repro_torch.launch import serve

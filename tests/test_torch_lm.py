@@ -283,10 +283,54 @@ def test_every_architecture_is_ported():
 
 
 def test_left_out_features_are_refused():
-    cfg = reduced_config(get_config("gemma2-9b"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tt.init_params(dataclasses.replace(cfg, pad_heads=8), device="cpu")
-    params = tt.init_params(cfg, device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tt.prefill(params, cfg, batch, 8, constrain=lambda t, r: t)
+    """The knobs refused until the distributed slice now run.  The
+    sharding hook ``constrain`` is called at the reference's roles with
+    the reference's shapes in prefill and decode (gemma2-9b, granite,
+    zamba2); ``pad_heads=8`` serves the reduced gemma2-9b with the
+    unpadded model's logits and caches (the padded heads are held to the
+    reference's padded forward in tests/test_torch_ep.py).  What stays
+    refused: distributing tensors over an abstract mesh."""
+    import collections
+    from repro_torch.distributed.sharding import Plan
+    from repro_torch.launch.mesh import make_production_mesh
+    for name in ("gemma2-9b", "granite-moe-3b-a800m", "zamba2-1.2b"):
+        cfg, jparams, params = _shared_model(name)
+        jcfg = j_reduced(j_get_config(name))
+        prompt = np.arange(2 * 8, dtype=np.int32).reshape(2, 8) % 100
+        seen = {"ref": collections.Counter(), "port": collections.Counter()}
+
+        def rec(who):
+            def constrain(t, role):
+                seen[who][(role, tuple(t.shape))] += 1
+                return t
+            return constrain
+        jlog, jcache = jax.jit(lambda p, t: jt.prefill(
+            p, jcfg, {"tokens": t}, 12, constrain=rec("ref")))(
+                jparams, jnp.asarray(prompt))
+        jax.jit(lambda p, c, t: jt.decode_step(
+            p, jcfg, c, t, constrain=rec("ref")))(
+                jparams, jcache, jnp.asarray(prompt[:, :1]))
+        log, cache = tt.prefill(params, cfg,
+                                {"tokens": torch.as_tensor(prompt)}, 12,
+                                constrain=rec("port"))
+        tt.decode_step(params, cfg, cache, torch.as_tensor(prompt[:, :1]),
+                       constrain=rec("port"))
+        assert seen["port"] == seen["ref"], name
+        np.testing.assert_allclose(_np(log), _np(jlog), atol=TOL, rtol=TOL)
+    cfg, _, params = _shared_model("gemma2-9b")
+    cfg8 = dataclasses.replace(cfg, pad_heads=8)
+    tokens = torch.as_tensor(prompt)
+    log, cache = tt.prefill(params, cfg, {"tokens": tokens}, 12)
+    log8, cache8 = tt.prefill(params, cfg8, {"tokens": tokens}, 12)
+    np.testing.assert_allclose(_np(log8), _np(log), atol=1e-5, rtol=1e-5)
+    for _ in range(2):
+        tok = greedy_sample(log)[:, None]
+        log, cache = tt.decode_step(params, cfg, cache, tok)
+        log8, cache8 = tt.decode_step(params, cfg8, cache8, tok)
+        np.testing.assert_allclose(_np(log8), _np(log), atol=1e-5,
+                                   rtol=1e-5)
+    _assert_caches(cache8, cache)
+    assert tuple(tt.init_params(cfg8, device="meta")["layers"][0]["attn"][
+        "wq"].shape) == (cfg.d_model, cfg.num_heads * cfg.resolved_head_dim)
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        Plan(make_production_mesh(), cfg).distribute(params)

@@ -201,9 +201,22 @@ def test_init_moe_params_follow_the_reference():
 
 
 def test_expert_parallelism_is_refused():
+    """Expert parallelism, once refused, is ported: ``EPSpec`` reads
+    its mesh as the reference's does (dp, tp, and the experts padded to a
+    multiple of the model axis) on the abstract production meshes.  What
+    stays refused is running the block over an abstract mesh.  The block
+    itself is held to the reference on gloo ranks in
+    tests/test_torch_ep.py."""
+    from repro_torch.launch.mesh import PRODUCTION_SHAPES, AbstractMesh
     cfg = reduced_config(get_config("granite-moe-3b-a800m"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tm.EPSpec(mesh=None, data_axes=("data",))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tm.moe_block(torch.zeros((1, 2, cfg.d_model)), {}, cfg.moe,
-                     cfg.mlp_variant, ep=object())
+    for multi_pod, (shape, names) in PRODUCTION_SHAPES.items():
+        data = names[:-1]
+        ep = tm.EPSpec(AbstractMesh(shape, names), data)
+        jep = jm.EPSpec(jax.sharding.AbstractMesh(shape, names), data)
+        assert (ep.dp, ep.tp) == (jep.dp, jep.tp) == (
+            int(np.prod(shape[:-1])), 16)
+        for e in (40, 128, 5):
+            assert ep.e_pad(e) == -(-e // jep.tp) * jep.tp
+        with pytest.raises(ValueError, match="AbstractMesh"):
+            tm.moe_block(torch.zeros((1, 2, cfg.d_model)), {}, cfg.moe,
+                         cfg.mlp_variant, ep=ep)

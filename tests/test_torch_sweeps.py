@@ -91,14 +91,19 @@ def test_plan_rejects_dropped_grid_points():
 
 
 def test_plan_refuses_more_than_one_device():
+    """Without a process group a plan runs on this process alone:
+    ``devices=1`` is ``devices=None`` bit for bit, and ``devices=2`` raises
+    and says what to call first.  Over a config mesh of 1, 2 and 4 gloo
+    ranks the plans are held bitwise in tests/test_torch_distributed.py."""
     sims = [PQ.QueueFlightSim(PQ.keygen_queue(), load=load, device="cpu")
             for load in ("low", "high")]
     plan = PS.queue_pair_plan(sims, 16, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         plan.run(devices=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         PV.sweep_pairs(PV.keygen_vector(), [dict(flight=2, num_azs=3)],
                        trials=16, devices=2, device="cpu")
+    np.testing.assert_equal(plan.run(devices=1), plan.run(devices=None))
     assert len(plan.run(devices=1)) == 2
 
 
