@@ -25,6 +25,9 @@ embeddings over 4,096 encoder frames).  The training path: gemma-2b
 trained at full width (18 layers, d_model 2048, 8 q / 1 kv heads of 256,
 ff 16,384, vocab 256,000, tied; bf16 weights, float32 AdamW moments) on
 the synthetic data of batches of 2 x 2,048 tokens, by ``launch/train.py``.
+The sharded path (phase 22): gemma-2b's training steps, granite's serving
+and zamba2's prefill with every parameter, moment, batch and cache leaf a
+DTensor placed by the sharding Plan, the kernels on each rank's shards.
 
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build all six kernels (one nvcc per source, in parallel), timed, with
@@ -192,15 +195,38 @@ the synthetic data of batches of 2 x 2,048 tokens, by ``launch/train.py``.
    its plain version; (c) qwen2-vl-2b with ``pad_heads=16`` (12 heads):
    its prefill at full width through flash_attention on the padded
    heads, the logits within RMS_K of the plain versions' bf16 spread from
-   float32; (d) gemma-2b at full width, two steps through a plan over the
-   one-rank mesh (batch shard, gradient mean by NCCL) bitwise equal in
-   loss and grad norm to the same two steps without it; (e) the
+   float32; (d) granite-moe-3b-a800m at full width, depth cut to
+   DP_MOE_LAYERS, two steps by batch blocks over the one-rank mesh
+   (``batch_blocks=plan``: batch shard, the MoE dispatch over the whole
+   batch, gradient mean by NCCL) bitwise equal in loss and grad norm to
+   the same two steps without it, and gemma-2b's two steps at full width
+   without a plan (phase 22 (a)'s reference); (e) the
    closed-loop load sweep on the kernel routes through the one-rank
-   config mesh, bitwise equal to ``devices=None``; (f) the dry run of
-   every cell on both production meshes (abstract, ``meta``): the cells
-   ok, and llama4-maverick-400b-a17b train_4k's per-rank parameter and
-   moment bytes on 2x16x16;
-22. one JSON line listing each kernel (launches on its path, error
+   config mesh, bitwise equal to ``devices=None``; (f) the dry run's
+   plan of every cell on both production meshes (abstract, ``meta``,
+   ``--plan-only``): the cells ok, and llama4-maverick-400b-a17b
+   train_4k's per-rank parameter and moment bytes on 2x16x16;
+22. the sharding plan run, on a one-rank NCCL group as a (data=1,
+   model=1) mesh: (a) gemma-2b at full width, phase 21 (d)'s two steps
+   with the parameters, AdamW moments and batch as DTensors
+   (``Plan.shard_state``): loss and grad norm bitwise equal to phase
+   21's steps without a plan, the warm ms a step beside it; (b)
+   granite-moe-3b-a800m, a prefill of 2 prompts of 4,096 tokens and
+   SHARD_STEPS greedy steps with the parameters and the cache as
+   DTensors (``Plan.shard_params``, ``Plan.init_cache``): the tokens and
+   the K3/K4/K5 launches equal to the unsharded path's (the kernels ran
+   under ``local_map``, not the plain versions); (c) zamba2-1.2b's
+   sharded prefill (K6): its logits bitwise the unsharded ones; (d) K3
+   with a query offset (an inner block of a quarter of the sequence,
+   whose offset is not the default and, at gemma2-9b's, whose rows cross
+   the window's edge) and K4's log-sum-exp at gemma2-9b's and granite's
+   shapes against their plain versions, K4's two halves merged by it
+   against the whole; (e) after every timed phase, the dry run's
+   counting of COUNT_CELLS (gemma-2b train_4k 16x16, granite decode_32k
+   16x16, llama4-maverick train_4k 2x16x16), each in a child interpreter
+   on a fake group, the three together: FLOPs a device, peak bytes,
+   collectives, wall s (counts of fake tensors, not device numbers);
+23. one JSON line listing each kernel (launches on its path, error
    against the plain version, times, bound, library time; for
    ``maxplus_scan`` also its launches on the fault paths; for both
    scheduler kernels their launches on the sweep path; for the two
@@ -214,9 +240,10 @@ the synthetic data of batches of 2 x 2,048 tokens, by ``launch/train.py``.
    and ``plain_ms`` is timed so too; for the three training kernels
    also their launches per training step and their backward times; for
    the kernels of phase 21 their launches on its distributed runs (EP
-   serving, the padded heads, the steps through the plan, the config
-   mesh's sweep; the runs they are held to are counted apart);
-23. the last line: ``{"ok": true, "device": {...}}``.
+   serving, the padded heads, the steps by batch blocks, the config
+   mesh's sweep; the runs they are held to are counted apart); for
+   K3-K6 their launches on phase 22's sharded runs;
+24. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or without
 the package beside it, it exits non-zero and prints no result.  A copy
@@ -300,6 +327,8 @@ TRAIN_ARCH = "gemma-2b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_FAIL_AT = 2, 2048, 6, 3
 TRAIN_SERVE_PROMPT = 512
 WIRING_TRAIN_BATCH = 1
+# phase 21 (d): granite's depth in its steps by batch blocks
+DP_MOE_LAYERS = 8
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
@@ -1885,11 +1914,15 @@ def padded_heads(dev, card) -> dict:
 
 
 def dp_steps(dev, card) -> dict:
-    """Phase 21 (d): gemma-2b at full width, two steps through a plan over
-    the one-rank (data=1, model=1) mesh (``make_train_step(...,
-    plan=plan)``: the batch shard, the gradient mean over the batch axes
-    by NCCL) and the same two steps without the plan, from the same
-    seed: loss and grad norm bitwise equal."""
+    """Phase 21 (d): data parallelism over batch blocks
+    (``make_train_step(..., batch_blocks=plan)``: replicated weights, the
+    batch shard, the MoE dispatch over the whole batch, the gradient mean
+    over the batch axes by NCCL) on granite-moe-3b-a800m at full width,
+    depth cut to DP_MOE_LAYERS: two steps through a plan over the
+    one-rank (data=1, model=1) mesh and the same two steps without it,
+    from the same seed, loss and grad norm bitwise equal; and gemma-2b's
+    two steps at full width without a plan, which phase 22 (a)'s sharded
+    steps are held to."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -1902,49 +1935,60 @@ def dp_steps(dev, card) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated() / 1e9
-    cfg = get_config(TRAIN_ARCH)
-    oc = OptConfig(warmup_steps=5, total_steps=TRAIN_STEPS,
-                   state_dtype=cfg.optimizer_state_dtype)
-    shape = ShapeConfig("dp", TRAIN_SEQ, TRAIN_BATCH, "train")
-    batches = [make_batch(cfg, shape, i) for i in range(2)]
-    plan = Plan(make_host_mesh(1, 1), cfg)
     wrappers = {n: e[2] for n, e in kernel_entries().items()
                 if n in ("flash_attention", "expert_matmul")}
-    runs, launches = {}, {}
-    for tag, kw in (("plain", {}), ("plan", dict(plan=plan))):
+
+    def two_steps(cfg, **kw):
+        oc = OptConfig(warmup_steps=5, total_steps=TRAIN_STEPS,
+                       state_dtype=cfg.optimizer_state_dtype)
+        shape = ShapeConfig("dp", TRAIN_SEQ, TRAIN_BATCH, "train")
         state = init_train_state(cfg, oc, 0, device=dev)
         step = make_train_step(cfg, oc, options=StepOptions(remat=False),
                                device=dev, **kw)
         before = {n: fn.launches for n, fn in wrappers.items()}
         recs = []
-        for b in batches:
+        for i in range(2):
+            batch = make_batch(cfg, shape, i)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, m = step(state, b)
+            state, m = step(state, batch)
             torch.cuda.synchronize()
             recs.append(dict(loss=m["loss"].item(),
                              grad_norm=m["grad_norm"].item(),
                              ms=(time.perf_counter() - t0) * 1e3))
-        runs[tag] = recs
-        launches[tag] = {n: fn.launches - before[n]
-                         for n, fn in wrappers.items()}
+        launches = {n: fn.launches - before[n] for n, fn in wrappers.items()}
         del state, step, m
         gc.collect()
         torch.cuda.empty_cache()
-    for a, b in zip(runs["plain"], runs["plan"]):
+        return recs, launches
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH),
+                                  num_layers=DP_MOE_LAYERS)
+    plan = Plan(make_host_mesh(1, 1), moe_cfg)
+    runs, launches = {}, {}
+    for tag, kw in (("plain", {}), ("blocks", dict(batch_blocks=plan))):
+        runs[tag], launches[tag] = two_steps(moe_cfg, **kw)
+    for a, b in zip(runs["plain"], runs["blocks"]):
         if (a["loss"], a["grad_norm"]) != (b["loss"], b["grad_norm"]):
-            raise AssertionError(f"{TRAIN_ARCH} data-parallel steps differ "
+            raise AssertionError(f"{MOE_ARCH} batch-block steps differ "
                                  f"from the plain steps: {runs}")
-    say(f"phase 21 {TRAIN_ARCH} data-parallel steps through the plan (1-rank"
-        f" mesh, B={TRAIN_BATCH} x {TRAIN_SEQ}; {held_gb:.1f} GB held "
-        f"before): loss and grad norm bitwise equal to the steps without "
-        f"it: " + "; ".join(
+    say(f"phase 21 {MOE_ARCH} ({DP_MOE_LAYERS} of "
+        f"{get_config(MOE_ARCH).num_layers} layers) data-parallel steps by "
+        f"batch blocks (batch_blocks=plan, 1-rank mesh, B={TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}; {held_gb:.1f} GB held before): loss and grad norm "
+        f"bitwise equal to the steps without it: " + "; ".join(
             f"step {i + 1} loss {a['loss']:.6f} grad norm "
             f"{a['grad_norm']:.6f}, {a['ms']:.1f} ms (plain {p['ms']:.1f})"
-            for i, (a, p) in enumerate(zip(runs["plan"], runs["plain"])))
-        + f"; launches {launches['plan']} [{card}]")
-    return dict(runs, launches=launches["plan"],
-                plain_launches=launches["plain"])
+            for i, (a, p) in enumerate(zip(runs["blocks"], runs["plain"])))
+        + f"; launches {launches['blocks']} [{card}]")
+    gemma, gemma_launches = two_steps(get_config(TRAIN_ARCH))
+    say(f"phase 21 {TRAIN_ARCH} two steps without a plan (B={TRAIN_BATCH} "
+        f"x {TRAIN_SEQ}, phase 22 (a)'s reference): " + "; ".join(
+            f"step {i + 1} loss {a['loss']:.6f} grad norm "
+            f"{a['grad_norm']:.6f}, {a['ms']:.1f} ms"
+            for i, a in enumerate(gemma)) + f" [{card}]")
+    return dict(moe=runs, gemma=gemma, launches=launches["blocks"],
+                plain_launches=launches["plain"],
+                gemma_launches=gemma_launches)
 
 
 DIST_SWEEP_JOBS, DIST_SWEEP_TRIALS = 2048, 16
@@ -1995,7 +2039,8 @@ def dry_run(card) -> dict:
     (abstract, ``meta`` tensors)."""
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
-    recs = dryrun.run_all(meshes=(False, True), echo=lambda m: None)
+    recs = dryrun.run_all(meshes=(False, True), echo=lambda m: None,
+                          count=False)
     wall = time.perf_counter() - t0
     ok = sum(r["ok"] for r in recs)
     if ok != len(recs):
@@ -2048,7 +2093,7 @@ def distributed_phase(dev, card) -> dict:
     finally:
         dist.destroy_process_group()
     # the distributed runs alone: EP serving, the padded heads' prefill,
-    # the steps through the plan and the sweep over the config mesh; the
+    # the steps by batch blocks and the sweep over the config mesh; the
     # rest (the runs they are held to, warm-ups, the EP wiring) apart
     out["launches"] = {k: 0 for k in counted}
     for part in (out["ep_serve"]["ep"]["launches"],
@@ -2071,6 +2116,330 @@ def distributed_phase(dev, card) -> dict:
         f"{out['comparison_launches']}; walls s "
         + ", ".join(
         f"{k} {v:.2f}" for k, v in walls.items()) + f" [{card}]")
+    return out
+
+
+# phase 22: granite's greedy steps, sharded and not; the dry run's counted
+# cells (arch, shape, multi-pod), each in a child interpreter on a fake
+# group of the mesh's ranks
+SHARD_STEPS = 8
+COUNT_CELLS = (("gemma-2b", "train_4k", False),
+               ("granite-moe-3b-a800m", "decode_32k", False),
+               ("llama4-maverick-400b-a17b", "train_4k", True))
+# K4's log-sum-exp against its plain version's (float32): atol, rtol, cap
+LSE_TOL = (1e-3, 1e-5, 1e-2)
+
+
+def one_rank_mesh():
+    """A (data=1, model=1) DeviceMesh over a one-rank NCCL group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    return make_host_mesh(1, 1)
+
+
+def counted(names):
+    """The named LM kernels' wrappers, their launch counts set to 0."""
+    entries = kernel_entries()
+    wrappers = {n: entries[n][2] for n in names}
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def sharded_train(dev, card, mesh, plain_runs) -> dict:
+    """Phase 22 (a): gemma-2b at full width, phase 21 (d)'s two steps
+    through the plan with the parameters, AdamW moments and batch as
+    DTensors over the one-rank mesh (``Plan.shard_state``): loss and grad
+    norm bitwise equal to phase 21's two steps without a plan."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distributed.sharding import Plan
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.step import (StepOptions, init_train_state,
+                                           make_train_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    oc = OptConfig(warmup_steps=5, total_steps=TRAIN_STEPS,
+                   state_dtype=cfg.optimizer_state_dtype)
+    shape = ShapeConfig("dp", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batches = [make_batch(cfg, shape, i) for i in range(2)]
+    plan = Plan(mesh, cfg)
+    state = plan.shard_state(init_train_state(cfg, oc, 0, device=dev))
+    step = make_train_step(cfg, oc, plan=plan,
+                           options=StepOptions(remat=False), device=dev)
+    wrappers = counted(("flash_attention",))
+    recs = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        recs.append(dict(loss=m["loss"].item(),
+                         grad_norm=m["grad_norm"].item(),
+                         ms=(time.perf_counter() - t0) * 1e3))
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    local = sum(p.to_local().numel() * p.element_size()
+                for p in state["params"].parameters())
+    del state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    for a, b in zip(recs, plain_runs):
+        if (a["loss"], a["grad_norm"]) != (b["loss"], b["grad_norm"]):
+            raise AssertionError(f"{TRAIN_ARCH} sharded steps differ from "
+                                 f"phase 21's steps without a plan: {recs} "
+                                 f"vs {plain_runs}")
+    say(f"phase 22 (a) {TRAIN_ARCH} sharded steps (DTensor parameters, "
+        f"moments and batch over the (1, 1) mesh, B={TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}): loss and grad norm bitwise equal to phase 21's "
+        f"steps without a plan: " + "; ".join(
+            f"step {i + 1} loss {a['loss']:.6f} grad norm "
+            f"{a['grad_norm']:.6f}, {a['ms']:.1f} ms (phase 21 "
+            f"{p['ms']:.1f})" for i, (a, p) in enumerate(zip(recs,
+                                                            plain_runs)))
+        + f"; launches {launches}; {local:,} parameter bytes on the rank "
+        f"[{card}]")
+    return dict(steps=recs, launches=launches, param_bytes=local)
+
+
+def sharded_serve(dev, card, mesh, arch, steps) -> dict:
+    """Phase 22 (b, c): ``arch`` at full width, a prefill of LM_BATCH
+    prompts of PROMPT2 tokens and ``steps`` greedy steps, unsharded and
+    then with the parameters and the cache as DTensors over the one-rank
+    mesh (``Plan.shard_params``, ``Plan.init_cache``): the logits of the
+    prefill and the tokens, and each LM kernel's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Plan
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import demo_requests
+    from repro_torch.serving.step import (greedy_sample, make_decode_step,
+                                          make_prefill_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    plan = Plan(mesh, cfg)
+    params = tfm.init_params(cfg, 0, device=dev)
+    batch = demo_requests(cfg, LM_BATCH, PROMPT2, seed=0, device=dev)
+    runs = {}
+    for tag in ("unsharded", "sharded"):
+        kw = {"plan": plan} if tag == "sharded" else {}
+        if tag == "sharded":
+            plan.shard_params(params)
+        prefill = make_prefill_step(cfg, MAX_LEN2, **kw)
+        decode = make_decode_step(cfg, **kw)
+        wrappers = counted(("flash_attention", "decode_attention",
+                            "expert_matmul", "ssd_scan"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        if tag == "sharded":
+            logits = logits.full_tensor()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        first, toks = logits.clone(), []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = greedy_sample(logits)
+            toks.append(tok)
+            logits, cache = decode(params, cache, tok[:, None])
+            if tag == "sharded":
+                logits = logits.full_tensor()
+        torch.cuda.synchronize()
+        runs[tag] = dict(
+            logits=first, tokens=torch.stack(toks, 1) if toks else None,
+            launches={n: fn.launches for n, fn in wrappers.items()},
+            prefill_ms=prefill_ms,
+            decode_ms=(time.perf_counter() - t0) * 1e3 / max(steps, 1))
+        del cache
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def kernel_interfaces(dev, card) -> dict:
+    """Phase 22 (d): K3 with a query offset and K4's log-sum-exp at
+    gemma2-9b's and granite's shapes, each against its plain version; K4
+    over the two halves of a cache merged by their log-sum-exp against
+    the plain version over the whole.  K3's queries are an inner block of
+    a quarter of the sequence, its keys whole: the block ends a quarter
+    of a block before the last key, so that the offset differs from the
+    default (keys - queries, the last block's) and, with gemma2-9b's
+    window, the window's edge falls inside the block."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_plain, gqa_decode, merge_parts)
+    from repro_torch.kernels.flash_attention.ops import attention_plain, mha
+    from repro_torch.models import transformer as tfm
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows = []
+    for arch, s in ((ARCH, PROMPT), (MOE_ARCH, PROMPT2)):
+        cfg = get_config(arch)
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        scale, cap = tfm._attn_scale(cfg), cfg.attn_logit_softcap
+        window = cfg.window_size if cfg.attn_pattern != "global" else 0
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+        blk = s // 4
+        off = s - blk - blk // 4
+        if off == s - blk or (window and off + blk - 1 < window):
+            raise AssertionError(f"{arch}: q_offset {off} is the default "
+                                 f"or misses the window's edge")
+        q, k, v = rand(LM_BATCH, blk, hq, d), rand(LM_BATCH, s, hkv, d), \
+            rand(LM_BATCH, s, hkv, d)
+        args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        kw = dict(causal=True, window=window, logit_cap=cap, scale=scale,
+                  q_offset=off)
+        got = mha(*args, **kw)
+        k3_err, k3_share = close(got, attention_plain(*args, **kw),
+                                 f"{arch} K3 q_offset")
+        c = s + 40
+        qd = rand(LM_BATCH, hq, d)
+        kc, vc = rand(LM_BATCH, c, hkv, d), rand(LM_BATCH, c, hkv, d)
+        pos = tfm.decode_positions(s + 20, c, 0, dev)
+        out, lse = gqa_decode(qd, kc, vc, pos, scale=scale, logit_cap=cap,
+                              return_lse=True)
+        w_out, w_lse = decode_attention_plain(qd, kc, vc, pos, scale=scale,
+                                              logit_cap=cap,
+                                              return_lse=True)
+        k4_err, _ = close(out, w_out, f"{arch} K4")
+        lse_err, lse_share = close(lse, w_lse, f"{arch} K4 lse", LSE_TOL)
+        h = c // 2
+        parts = [gqa_decode(qd, kc[:, a:b], vc[:, a:b], pos[a:b],
+                            scale=scale, logit_cap=cap, return_lse=True)
+                 for a, b in ((0, h), (h, c))]
+        merged = merge_parts(torch.stack([p[0] for p in parts]),
+                             torch.stack([p[1] for p in parts]))
+        m_err, m_share = close(merged, w_out, f"{arch} K4 halves merged")
+        rows.append(dict(arch=arch, k3_shape=[LM_BATCH, blk, hq, hkv, s, d],
+                         q_offset=off, window=window, cap=cap,
+                         k3_err=k3_err, k3_share=k3_share,
+                         k4_shape=[LM_BATCH, hq, hkv, c, d], k4_err=k4_err,
+                         lse_err=lse_err, lse_share=lse_share,
+                         merged_err=m_err, merged_share=m_share))
+        say(f"phase 22 (d) {arch}: K3 with q_offset {off} (rows {off}-"
+            f"{off + blk - 1} of {s}, the default offset {s - blk}; window "
+            f"{window}, cap {cap}) max abs err {k3_err:.3g}"
+            f" ({k3_share:.3f} of the bar); K4 C={c}: out {k4_err:.3g}, "
+            f"lse {lse_err:.3g} ({lse_share:.3f} of atol {LSE_TOL[0]} + "
+            f"rtol {LSE_TOL[1]}), two halves merged by lse {m_err:.3g} "
+            f"({m_share:.3f}) [{card}]")
+    return dict(rows=rows)
+
+
+def count_cells_in_children() -> list:
+    """Phase 22 (e): COUNT_CELLS counted by the dry run, each in its own
+    child interpreter on a fake group (host cores, no device), the three
+    run together and joined; after every timed phase, so that no time is
+    taken beside them.  Each record with its wall s."""
+    import threading
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PRODUCTION_SHAPES
+    results = [None] * len(COUNT_CELLS)
+
+    def one(i, arch, shape, mp):
+        t0 = time.perf_counter()
+        sizes, names = PRODUCTION_SHAPES[mp]
+        rec = dryrun.count_in_child(sizes, names, [{"arch": arch,
+                                                    "shape": shape}],
+                                    timeout=600)[0]
+        rec["wall_s"] = time.perf_counter() - t0
+        results[i] = rec
+    threads = [threading.Thread(target=one, args=(i, *cell))
+               for i, cell in enumerate(COUNT_CELLS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results
+
+
+def sharded_phase(dev, card, plain_runs) -> dict:
+    """Phase 22: the sharding plan run (see the module docstring);
+    ``plain_runs``: phase 21 (d)'s gemma-2b steps without a plan."""
+    import torch
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev.index or 0)
+    mesh = one_rank_mesh()
+    out, walls = {}, {}
+    try:
+        t0 = time.perf_counter()
+        out["train"] = sharded_train(dev, card, mesh, plain_runs)
+        walls["train"] = time.perf_counter() - t0
+        for key, arch, steps in (("serve", MOE_ARCH, SHARD_STEPS),
+                                 ("ssd", HYBRID_ARCH, 0)):
+            t0 = time.perf_counter()
+            runs = sharded_serve(dev, card, mesh, arch, steps)
+            walls[key] = time.perf_counter() - t0
+            a, b = runs["unsharded"], runs["sharded"]
+            if key == "serve":
+                same = torch.equal(a["tokens"], b["tokens"])
+                what = f"{steps} greedy tokens"
+            else:
+                same = torch.equal(a["logits"], b["logits"])
+                what = "prefill logits bitwise"
+            if not same or a["launches"] != b["launches"]:
+                raise AssertionError(
+                    f"{arch} sharded: {what} equal {same}; launches "
+                    f"{b['launches']} vs unsharded {a['launches']}")
+            used = [n for n, c in b["launches"].items() if c]
+            say(f"phase 22 ({'b' if key == 'serve' else 'c'}) {arch} "
+                f"sharded (DTensor parameters and cache over the (1, 1) "
+                f"mesh), {LM_BATCH} x {PROMPT2} prompt: {what} equal the "
+                f"unsharded path's; launches {b['launches']} (unsharded "
+                f"equal); prefill {b['prefill_ms']:.1f} ms (unsharded "
+                f"{a['prefill_ms']:.1f})" + (
+                    f", decode {b['decode_ms']:.2f} ms a step (unsharded "
+                    f"{a['decode_ms']:.2f})" if steps else "")
+                + f"; kernels used {used} [{card}]")
+            out[key] = {t: {k: v for k, v in r.items()
+                            if k not in ("logits", "tokens")}
+                        for t, r in runs.items()}
+        t0 = time.perf_counter()
+        out["interfaces"] = kernel_interfaces(dev, card)
+        walls["interfaces"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    walls["on_card"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    counts = count_cells_in_children()
+    walls["counts"] = time.perf_counter() - t0
+    for cell, rec in zip(COUNT_CELLS, counts):
+        if not (rec and rec.get("ok")):
+            raise AssertionError(f"dry-run count of {cell}: {rec}")
+        mesh_name = "2x16x16" if cell[2] else "16x16"
+        say(f"phase 22 (e) dry run counted {cell[0]} {cell[1]} {mesh_name} "
+            f"(child interpreter, fake group; counts of fake tensors, not "
+            f"device numbers): flops/device {rec['flops_per_device']:.4g}, "
+            f"peak {rec['peak_bytes_per_device'] / 2**30:.2f} GiB, "
+            f"collectives {rec['n_collectives']} "
+            + ", ".join(f"{k} {v:.4g} B" for k, v in
+                        rec["collective_bytes"].items() if v)
+            + f"; {rec['wall_s']:.1f} s wall (the three cells together)")
+    out["counts"] = [dict(arch=c[0], shape=c[1], multi_pod=c[2], **r)
+                     for c, r in zip(COUNT_CELLS, counts)]
+    out["launches"] = {k: out["train"]["launches"].get(k, 0)
+                       + out["serve"]["sharded"]["launches"].get(k, 0)
+                       + out["ssd"]["sharded"]["launches"].get(k, 0)
+                       for k in ("flash_attention", "decode_attention",
+                                 "expert_matmul", "ssd_scan")}
+    if min(out["launches"].values()) < 1:
+        raise AssertionError(f"a kernel of the sharded path never "
+                             f"launched: {out['launches']}")
+    walls["phase"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    say(f"phase 22 launches on the sharded runs: {out['launches']}; walls "
+        f"s " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+        + f" [{card}]")
     return out
 
 
@@ -2828,7 +3197,12 @@ def main() -> int:
     results["distributed"] = distributed_phase(dev, card)
     dist_launches = results["distributed"]["launches"]
 
-    # ---- 22. kernels line --------------------------------------------------
+    # ---- 22. the sharding plan run -----------------------------------------
+    results["sharded"] = sharded_phase(
+        dev, card, results["distributed"]["dp_steps"]["gemma"])
+    shard_launches = results["sharded"]["launches"]
+
+    # ---- 23. kernels line --------------------------------------------------
     kernels = [
         {"name": "queue_booking", "route": "cuda",
          "source": "src/repro_torch/csrc/queue_booking.cu",
@@ -2869,6 +3243,7 @@ def main() -> int:
                          "are at cap 0, window 0",
          "path_launches": path_launches("flash_attention"),
          "distributed_launches": dist_launches["flash_attention"],
+         "sharded_launches": shard_launches["flash_attention"],
          "shapes": k3["rows"],
          "train_launches_per_step": train_launches("flash_attention"),
          "trainer_launches": trained["launches"]["flash_attention"],
@@ -2888,6 +3263,7 @@ def main() -> int:
                          "cold",
          "path_launches": path_launches("decode_attention"),
          "distributed_launches": dist_launches["decode_attention"],
+         "sharded_launches": shard_launches["decode_attention"],
          "shapes": k4["rows"]},
         {"name": "expert_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/expert_matmul.cu",
@@ -2901,6 +3277,7 @@ def main() -> int:
                          "bound by operations, and decode C=4, by bytes)",
          "shapes": k5["rows"],
          "distributed_launches": dist_launches["expert_matmul"],
+         "sharded_launches": shard_launches["expert_matmul"],
          "train_launches_per_step": train_launches("expert_matmul"),
          "train_shapes": grads["expert_matmul"]},
         {"name": "ssd_scan", "route": "cuda",
@@ -2911,6 +3288,7 @@ def main() -> int:
          "plain_ms": k6_plain_ms, "bound_ms": k6["bound_ms"],
          "bound_by": k6["bound_by"], "library_ms": None,
          "train_launches_per_step": train_launches("ssd_scan"),
+         "sharded_launches": shard_launches["ssd_scan"],
          "train_shape": grads["ssd_scan"]},
     ]
     results["kernels"] = kernels

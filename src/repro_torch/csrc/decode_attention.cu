@@ -42,7 +42,10 @@
 //   into rank 0's shared memory (distributed shared memory, each rank in
 //   its own slot) and leaves; rank 0 merges the ranks in rank order:
 //     M = max_i m_i;  L = sum_i l_i exp(m_i - M);
-//     out = sum_i acc_i exp(m_i - M) / max(L, 1e-30).
+//     out = sum_i acc_i exp(m_i - M) / max(L, 1e-30),
+//   and, where the caller asks for it, each row's log-sum-exp M + log L
+//   (float32 [B, Hq]): the weight by which parts of one row computed
+//   over disjoint slices of a cache merge across launches or ranks.
 //   So one launch, no workspace, no atomics, and bitwise repeatable.
 // The products stay on the CUDA cores: at ~2 rep FLOP per byte they are
 // a small part of a tile's work.  clock64 stamps of an instrumented copy
@@ -140,6 +143,7 @@ struct Cfg {
 struct Params {
   const void* q;
   void* o;
+  float* lse;                  // [B, Hq] log-sum-exp of the scores, or null
   int Hq, Hkv, C, per, tiles;
   long long q_b, q_h, o_b, o_h;
   float scale, cap;
@@ -496,6 +500,8 @@ decode_attention_kernel(const __grid_constant__ CUtensorMap tk,
       L += all[r8 * step + tid * (D + 2) + D + 1] * w;
     }
     inv[tid] = 1.0f / fmaxf(L, 1e-30f);
+    if (p.lse != nullptr)
+      p.lse[static_cast<long long>(b) * p.Hq + g * rep + tid] = M + logf(L);
   }
   __syncthreads();
   T* o = static_cast<T*>(p.o) + b * p.o_b + (g * rep) * p.o_h;
@@ -544,6 +550,7 @@ cudaError_t prepare() {
 struct Args {
   const void *q, *k, *v, *kv_pos;
   void* o;
+  float* lse;
   int B, Hq, Hkv, C, cluster, per;
   long long q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h;
   float scale, cap;
@@ -571,8 +578,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       make_tensor_map_dense(&tp, CU_TENSOR_MAP_DATA_TYPE_INT32, a.kv_pos, 2,
                             p_sizes, p_strides, p_box) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  Params p{a.q, a.o, a.Hq, a.Hkv, a.C, a.per, tiles, a.q_b, a.q_h, a.o_b,
-           a.o_h, a.scale, a.cap};
+  Params p{a.q, a.o, a.lse, a.Hq, a.Hkv, a.C, a.per, tiles, a.q_b, a.q_h,
+           a.o_b, a.o_h, a.scale, a.cap};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.cluster, a.B * a.Hkv);
   cfg.blockDim = dim3(K::THREADS);
@@ -668,16 +675,19 @@ extern "C" int decode_attention_blocks_per_sm(int dtype, int D, int rep) {
 // strides in elements (D contiguous, the others multiples of 16 bytes),
 // 16-byte aligned; kv_pos [C] int32, 16-byte aligned.  The cache of each
 // (batch, kv head) is split into ``cluster`` parts of ``per`` tiles.
+// lse: null, or float32 [B, Hq] contiguous for each row's log-sum-exp.
 // Returns the CUDA error (0: ok).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* kv_pos,
-    void* o, int dtype, int B, int Hq, int Hkv, int C, int D, int cluster,
-    int per, long long q_b, long long q_h, long long k_b, long long k_s,
-    long long k_h, long long v_b, long long v_s, long long v_h,
-    long long o_b, long long o_h, float scale, float cap, void* stream) {
+    void* o, void* lse, int dtype, int B, int Hq, int Hkv, int C, int D,
+    int cluster, int per, long long q_b, long long q_h, long long k_b,
+    long long k_s, long long k_h, long long v_b, long long v_s,
+    long long v_h, long long o_b, long long o_h, float scale, float cap,
+    void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv || C <= 0 || B * Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, kv_pos, o, B, Hq, Hkv, C, cluster, per, q_b, q_h,
+  const Args a{q, k, v, kv_pos, o, static_cast<float*>(lse), B, Hq, Hkv, C,
+               cluster, per, q_b, q_h,
                k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h, scale, cap};
   const long long err = by_shape(dtype, D, Hq / Hkv,
                                  Launch{a, static_cast<cudaStream_t>(stream)});

@@ -6,7 +6,9 @@
 // sequential kv grid dimension).  Here the kv dimension is a loop inside
 // the block, so nothing carries over between blocks.
 //
-// Per query row i (at key position i + Sk - Sq) and key j:
+// Per query row i (at key position i + qoff; qoff = Sk - Sq unless the
+// caller gives another, e.g. a rank's block of a sequence-sharded query)
+// and key j:
 //   s = (q_i . k_j) * scale;  s = tanh(s / cap) * cap  (cap != 0);
 //   s = NEG_INF where j > i (causal) or j <= i - window (window != 0);
 //   m' = max(m, max_j s);  p = exp(s - m');  l = l exp(m - m') + sum p;
@@ -18,7 +20,7 @@
 // Tiles of keys wholly above the causal diagonal or wholly outside the
 // window of every row of the q-tile are skipped.  A row that is masked in
 // every tile it visits would get 0 instead of the mean of v; the wrapper
-// refuses the one such case (causal with Sq > Sk).
+// refuses the one such case (causal with qoff < 0).
 //
 // What bounds it: operations.  Prefill at gemma2-9b's shapes (B=2, 16 q
 // heads, S=4608, D=256) is ~3.5e11 FLOP per layer with the causal skip,
@@ -110,6 +112,7 @@ struct Params {
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
   float scale, cap;
   int causal, window;
+  int qoff;                    // key position of query row 0
 };
 
 // ---- float32 on the CUDA cores ------------------------------------------
@@ -163,7 +166,7 @@ flash_attention_f32_kernel(Params p) {
   const int ty = tid >> 4;     // rows ty + 16 i
   const int tx = tid & 15;     // keys / columns tx + 16 j
   const int q0 = qt * BQ;
-  const int off = p.Sk - p.Sq;
+  const int off = p.qoff;
 
   load_tile<D>(Qs, q, p.q_s, q0, p.Sq);
 
@@ -408,7 +411,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = blockIdx.y;
   const int g = h / (p.Hq / p.Hkv);
   const int q0 = qt * W_BQ;
-  const int off = p.Sk - p.Sq;
+  const int off = p.qoff;
   // the keys any row of this q-tile can see
   const int qlo = q0 + off;
   const int qhi = min(q0 + W_BQ, p.Sq) - 1 + off;
@@ -734,7 +737,8 @@ cudaError_t dispatch(const Params& p, int dtype, int B, int D,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  Strides are in elements; the head
-// dimension is contiguous.  Returns the CUDA error of the launch (0: ok).
+// dimension is contiguous.  q_offset: the key position of query row 0.
+// Returns the CUDA error of the launch (0: ok).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Hq, int Hkv, int Sq, int Sk, int D,
@@ -742,10 +746,11 @@ extern "C" int flash_attention_launch(
     long long k_b, long long k_h, long long k_s,
     long long v_b, long long v_h, long long v_s,
     long long o_b, long long o_h, long long o_s,
-    float scale, float cap, int causal, int window, void* stream) {
+    float scale, float cap, int causal, int window, int q_offset,
+    void* stream) {
   Params p{q, k, v, o, Hq, Hkv, Sq, Sk,
            q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s,
-           scale, cap, causal, window};
+           scale, cap, causal, window, q_offset};
   return static_cast<int>(
       dispatch(p, dtype, B, D, static_cast<cudaStream_t>(stream)));
 }

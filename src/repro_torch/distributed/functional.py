@@ -21,6 +21,10 @@ gradient again.
 - :func:`reduce_grad`: the identity whose gradient is summed over the
   groups and scaled, for a replicated weight of which each rank uses a
   part.
+- :func:`sum_replicated`: a sum over the groups whose result every rank
+  holds as one replicated value (a ``DTensor``'s ``Replicate``, as a
+  sharded step's vocab-parallel loss is): each rank's gradient is its
+  own, passed through.
 
 :class:`BatchShard` names this rank's block of a batch split evenly over
 the batch axes' groups; the loss and the MoE block read it to compute
@@ -152,6 +156,20 @@ class _ReduceGrad(torch.autograd.Function):
 
 def all_reduce_sum(x, groups):
     return _AllReduceSum.apply(x, tuple(groups))
+
+
+class _SumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _sum(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_replicated(x, groups):
+    return _SumReplicated.apply(x, tuple(groups))
 
 
 def gather_blocks(x, shard: BatchShard):

@@ -19,9 +19,19 @@ divisibility and degrades to replication, so all ten architectures fit
 the fixed 16x16 and 2x16x16 meshes.
 
 The plan reads only the mesh's names and sizes, so it takes an
-:class:`~repro_torch.launch.mesh.AbstractMesh` (the dry run, the spec
-tests) as well as a ``DeviceMesh``; :meth:`Plan.distribute` and
-:meth:`Plan.constrain` of a ``DTensor`` need the latter.
+:class:`~repro_torch.launch.mesh.AbstractMesh` (the spec tests) as well
+as a ``DeviceMesh``; :meth:`Plan.distribute` and :meth:`Plan.constrain`
+of a ``DTensor`` need the latter.
+
+Running the plan (the counterpart of the reference's ``in_shardings``):
+:meth:`Plan.shard_state` turns the train state's parameters and AdamW
+moments into ``DTensor``s placed by :meth:`param_spec` (ZeRO-3 over the
+data axes, tensor parallel over ``model``) and :meth:`shard_batch` /
+:meth:`init_cache` the batch and the decode cache.  The steps read the
+parameters through :meth:`gathered`, which gathers each weight over the
+data axes where a layer reads it (ZeRO-3: under remat the backward
+gathers it again, and its gradient comes back reduce-scattered) and
+keeps its ``model`` placement; the activations follow ``constrain``.
 """
 from __future__ import annotations
 
@@ -63,6 +73,32 @@ def param_path(name: str) -> str:
     """A port parameter name (``layers.0.attn.wq``) as the reference's
     pytree path string (``layers/0/attn/wq``)."""
     return name.replace(".", "/")
+
+
+class Gathered:
+    """A parameter tree read through ``gather``: indexing it gives each
+    tensor as ``gather(tensor)`` and each subtree as a ``Gathered``, so
+    the model's ``p["wq"]`` reads a weight where the layer uses it."""
+
+    def __init__(self, tree, gather):
+        self._tree, self._gather = tree, gather
+
+    def _wrap(self, v):
+        if isinstance(v, torch.Tensor):
+            return self._gather(v)
+        return Gathered(v, self._gather)
+
+    def __getitem__(self, key):
+        return self._wrap(self._tree[key])
+
+    def __contains__(self, key) -> bool:
+        return key in self._tree
+
+    def __iter__(self):
+        return (self._wrap(v) for v in self._tree)
+
+    def __len__(self) -> int:
+        return len(self._tree)
 
 
 def named_tensors(tree, prefix: str = ""):
@@ -295,28 +331,43 @@ class Plan:
         ``ParamTree`` or a {name: tensor} map; ``"batch"``; ``"cache"``),
         each placed by its spec with ``distribute_tensor`` on the plan's
         ``DeviceMesh``.  Every rank passes the same full tensors."""
-        from torch.distributed.tensor import distribute_tensor
         if is_abstract(self.mesh):
             raise ValueError("distribute needs a DeviceMesh; this plan's "
                              "mesh is abstract")
         specs = {"params": self.param_specs, "batch": self.batch_specs,
                  "cache": self.cache_specs}[kind](tree)
         tensors = dict(named_tensors(tree))
-        return {name: distribute_tensor(tensors[name].detach(), self.mesh,
-                                        self.placements(spec))
+        return {name: self._place(tensors[name].detach(), spec)
                 for name, spec in specs.items()}
+
+    def _place(self, t, spec):
+        """``t`` (the same whole tensor on every rank) as a DTensor under
+        ``spec``: each rank keeps its block, nothing is sent."""
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, self.mesh, self.placements(spec),
+                                 src_data_rank=None)
 
     def constrain(self, t, role: str):
         """Redistribute a ``DTensor`` to ``role``'s spec; a plain tensor
         (the port's eager activations) passes through unchanged -- in the
-        reference too this is a layout hint with no effect on values."""
-        from torch.distributed.tensor import DTensor
+        reference too this is a layout hint with no effect on values.
+        A dim the spec shards but whose size its mesh dims do not divide
+        (``act_resid``'s batch of one) stays replicated: XLA pads such a
+        shard, DTensor could not reshape it."""
+        from torch.distributed.tensor import DTensor, Replicate
         if not isinstance(t, DTensor):
             return t
         spec = self.act_spec(role, tuple(t.shape))
         if spec is None:
             return t
-        return t.redistribute(self.mesh, self.placements(spec))
+        pl = list(self.placements(spec))
+        for d, size in enumerate(t.shape):
+            dims = [i for i, p in enumerate(pl) if p.is_shard(d)]
+            if size % self._axes_size(tuple(
+                    self.mesh.mesh_dim_names[i] for i in dims)):
+                for i in dims:
+                    pl[i] = Replicate()
+        return t.redistribute(self.mesh, pl)
 
     # -- data parallelism -----------------------------------------------------
     def local_batch(self, batch: Dict[str, torch.Tensor]
@@ -349,3 +400,80 @@ class Plan:
             return None
         return BatchShard(tuple(self.batch_groups()), self.batch_size(),
                           axis_index(self.mesh, self.data))
+
+    # -- running the plan -----------------------------------------------------
+    def gather(self, t):
+        """A parameter as a layer reads it: a ``DTensor`` sharded over the
+        data axes is gathered over them (ZeRO-3), its ``model`` placement
+        kept; anything else passes through."""
+        from torch.distributed.tensor import DTensor, Replicate
+        if not isinstance(t, DTensor):
+            return t
+        names = t.device_mesh.mesh_dim_names
+        want = tuple(Replicate() if n in self.data else p
+                     for n, p in zip(names, t.placements))
+        if want == tuple(t.placements):
+            return t
+        return t.redistribute(t.device_mesh, want)
+
+    def gathered(self, params) -> Gathered:
+        """``params`` read through :meth:`gather`."""
+        return Gathered(params, self.gather)
+
+    def shard_params(self, params):
+        """Every parameter of ``params`` (a ``ParamTree``) made, in place,
+        a ``DTensor`` parameter placed by its spec; returns ``params``."""
+        for mod_name, mod in params.named_modules():
+            for name, p in list(mod._parameters.items()):
+                full = f"{mod_name}.{name}" if mod_name else name
+                spec = self.param_spec(param_path(full), tuple(p.shape))
+                mod._parameters[name] = torch.nn.Parameter(
+                    self._place(p.detach(), spec),
+                    requires_grad=p.requires_grad)
+        return params
+
+    def shard_state(self, state):
+        """The train state ``{"params", "opt": {"mu", "nu", "step"}}`` with
+        the parameters and both moments as DTensors placed by the
+        parameters' specs (the step count stays a plain scalar)."""
+        params = self.shard_params(state["params"])
+        opt = dict(state["opt"])
+        for m in ("mu", "nu"):
+            opt[m] = self.distribute(opt[m], "params")
+        return {**state, "params": params, "opt": opt}
+
+    def shard_batch(self, batch):
+        """A batch dict (or the decode step's bare tokens) as DTensors
+        placed by :meth:`batch_spec`."""
+        if isinstance(batch, torch.Tensor):
+            return self._place(batch, self.batch_spec("", tuple(
+                batch.shape)))
+        return {n: self._place(t, self.batch_spec(n, tuple(t.shape)))
+                for n, t in batch.items()}
+
+    def init_cache(self, cfg: ModelConfig, batch: int, max_len: int,
+                   enc_len: int = 0, *, device=None):
+        """The decode cache of ``transformer.init_cache`` as DTensor zeros
+        placed by :meth:`cache_spec`, each rank allocating its block on
+        the mesh's device (``device``, ``init_cache``'s, is not read)."""
+        from torch.distributed.tensor import zeros
+        from torch.utils._python_dispatch import _disable_current_modes
+        from repro_torch.models import transformer as tfm
+        with _disable_current_modes():   # shapes only, seen by no mode
+            shapes = tfm.init_cache(cfg, batch, max_len, enc_len,
+                                    device="meta")
+
+        def build(tree):
+            out = {}
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    out[k] = build(v)
+                elif isinstance(v, torch.Tensor):
+                    out[k] = zeros(tuple(v.shape), dtype=v.dtype,
+                                   device_mesh=self.mesh,
+                                   placements=self.placements(
+                                       self.cache_spec(k, tuple(v.shape))))
+                else:
+                    out[k] = v
+            return out
+        return build(shapes)

@@ -6,7 +6,11 @@ decode_attention``.  q ``[B, Hq, D]``; k and v ``[B, C, Hkv, D]``, the
 model's cache layout; ``kv_pos [C]`` int32, where a slot with
 ``kv_pos < 0`` is masked (``NEG_INF``, finite).  Query head ``h`` reads kv
 head ``h // (Hq // Hkv)``.  Per score: ``s = q.k * scale``, then
-``tanh(s / cap) * cap``, then the mask; softmax in float32.
+``tanh(s / cap) * cap``, then the mask; softmax in float32.  With
+``return_lse`` each row's log-sum-exp of its scores comes back too
+(float32 ``[B, Hq]``): parts of one row computed over disjoint slices of
+the cache (a slot-sharded cache's ranks) merge by it
+(:func:`merge_parts`).
 
 On this card the kernel is bound by the bytes of the cache it reads (see
 the note in ``csrc/decode_attention.cu``): the cache of each (batch, kv
@@ -41,7 +45,7 @@ def _lib():
     """The library, its argument types set once, when it is loaded."""
     lib = library("decode_attention")
     lib.decode_attention_launch.argtypes = (
-        [_P] * 5 + [_I] * 8 + [_L] * 10 + [_F, _F, _P])
+        [_P] * 6 + [_I] * 8 + [_L] * 10 + [_F, _F, _P])
     lib.decode_attention_launch.restype = _I
     for fn in ("decode_attention_tile", "decode_attention_blocks_per_sm"):
         getattr(lib, fn).argtypes = [_I, _I, _I]
@@ -66,9 +70,10 @@ def _shape(dtype: int, d: int, rep: int):
 
 
 def decode_attention_plain(q, k, v, kv_pos, *, scale: float | None = None,
-                           logit_cap: float = 0.0):
+                           logit_cap: float = 0.0, return_lse: bool = False):
     """The plain PyTorch version (grouped GQA, materialised scores).
-    q: [B, Hq, D]; k, v: [B, C, Hkv, D]; kv_pos: [C] -> [B, Hq, D]."""
+    q: [B, Hq, D]; k, v: [B, C, Hkv, D]; kv_pos: [C] -> [B, Hq, D] (and
+    the rows' log-sum-exp [B, Hq] float32 with ``return_lse``)."""
     b, hq, d = q.shape
     hkv = k.shape[2]
     rep = hq // hkv
@@ -81,7 +86,21 @@ def decode_attention_plain(q, k, v, kv_pos, *, scale: float | None = None,
                     torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrc,bcgd->bgrd", p, v.float())
-    return out.reshape(b, hq, d).to(q.dtype)
+    out = out.reshape(b, hq, d).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(b, hq)
+    return out
+
+
+def merge_parts(outs, lses):
+    """One row's attention from its parts over disjoint slices of the
+    cache: ``outs`` [n, B, Hq, D] and ``lses`` [n, B, Hq] (each part's
+    output and log-sum-exp) -> [B, Hq, D] in the parts' dtype; the parts
+    weigh ``exp(lse_i - max_i lse_i)``, in float32."""
+    m = lses.amax(dim=0)
+    w = torch.exp(lses - m)
+    out = (outs.float() * w[..., None]).sum(0) / w.sum(0)[..., None]
+    return out.to(outs.dtype)
 
 
 def _check(q, k, v, kv_pos):
@@ -122,17 +141,25 @@ def plan(groups: int, c: int, tile: int, slots: int, max_cluster: int):
 
 
 def gqa_decode(q, k, v, kv_pos, *, scale: float | None = None,
-               logit_cap: float = 0.0):
+               logit_cap: float = 0.0, return_lse: bool = False):
     """One token's attention over the cache.
 
     q: [B, Hq, D]; k, v: [B, C, Hkv, D] (D contiguous); kv_pos: [C]
     int32.  CUDA tensors launch the kernel; CPU tensors run
-    :func:`decode_attention_plain`.  Returns [B, Hq, D].
+    :func:`decode_attention_plain`.  Returns [B, Hq, D], and with
+    ``return_lse`` also each row's log-sum-exp, float32 [B, Hq].
     """
     _check(q, k, v, kv_pos)
+    return _forward(q, k, v, kv_pos, scale, logit_cap, return_lse)
+
+
+def _forward(q, k, v, kv_pos, scale, logit_cap, return_lse):
+    """The kernel on CUDA tensors, :func:`decode_attention_plain` on CPU
+    ones."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_pos, scale=scale,
-                                      logit_cap=logit_cap)
+                                      logit_cap=logit_cap,
+                                      return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"gqa_decode runs on cuda or cpu, not {q.device}")
     lib = _lib()
@@ -160,15 +187,18 @@ def gqa_decode(q, k, v, kv_pos, *, scale: float | None = None,
         kv_pos = kv_pos.clone()
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0 or c == 0:
-        return out
+        return (out, lse) if return_lse else out
     tile, per_sm, max_cluster = _shape(_DTYPES[q.dtype], d, rep)
     cluster, per = plan(b * hkv, c, tile, per_sm * _sm_count(q.device),
                         max_cluster)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], b, hq, hkv, c, d,
+        out.data_ptr(), lse.data_ptr() if return_lse else None,
+        _DTYPES[q.dtype], b, hq, hkv, c, d,
         cluster, per, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         k.stride(2), v.stride(0), v.stride(1), v.stride(2), out.stride(0),
         out.stride(1), float(scale), float(logit_cap or 0.0), stream)
@@ -177,7 +207,7 @@ def gqa_decode(q, k, v, kv_pos, *, scale: float | None = None,
                            f"{err}")
     with _count_lock:            # flight members launch from threads
         gqa_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 #: kernel launches since the count was last set to 0

@@ -6,8 +6,9 @@ environment.  A mesh is either
 
 - a :class:`~torch.distributed.device_mesh.DeviceMesh` over an
   initialized process group (:func:`make_mesh`; the caller creates the
-  group with ``torch.distributed.init_process_group``, NCCL on the card,
-  gloo on the CPU), or
+  group with ``torch.distributed.init_process_group``: NCCL on the card,
+  gloo on the CPU, or the ``"fake"`` backend, whose collectives send
+  nothing, for the dry run's 256 and 512 ranks in one process), or
 - an :class:`AbstractMesh`, a record of dim names and sizes with no
   group and no devices, the counterpart of ``jax.sharding.AbstractMesh``:
   the sharding plan and the dry run reason about the 512-rank production
@@ -67,7 +68,7 @@ def is_abstract(mesh) -> bool:
 
 def _device_type() -> str:
     """A mesh's device type follows the group's backend: NCCL meshes
-    hold CUDA tensors, gloo meshes CPU ones."""
+    hold CUDA tensors, gloo and fake meshes CPU ones."""
     return "cuda" if torch.distributed.get_backend() == "nccl" else "cpu"
 
 

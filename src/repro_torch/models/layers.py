@@ -8,20 +8,31 @@ strategies (``attention_full``, ``attention_blockwise``,
 function, and the tests hold the kernel's plain version to each of them.
 The encoder's self-attention and the decoder's cross attention of an
 encoder-decoder model go through the same kernel with ``causal=False``.
+On ``DTensor`` inputs (a sharded step) the kernel runs on each rank's
+heads or sequence block (``distributed.local.sharded_attention``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.functional import all_reduce_sum
+from repro_torch.distributed.local import (is_dtensor, linear,
+                                           sharded_attention)
 from repro_torch.kernels.flash_attention.ops import mha
 
 
-def rms_norm(x, scale, eps: float = 1e-6):
-    """RMS norm in float32, scaled by ``1 + scale``; back in x's dtype."""
+def rms_norm(x, scale, eps: float = 1e-6, *, groups=None, width=None):
+    """RMS norm in float32, scaled by ``1 + scale``; back in x's dtype.
+    With ``groups`` x is this rank's block of the normed dim, ``width``
+    wide in all: the sum of squares is summed over the groups."""
     dt = x.dtype
     x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    if groups:
+        var = all_reduce_sum(torch.sum(torch.square(x), dim=-1,
+                                       keepdim=True), groups) / width
+    else:
+        var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(dt)
 
@@ -34,11 +45,11 @@ def softcap(x, cap: float):
 
 def mlp_block(x, p, variant: str):
     """SwiGLU / GeGLU gated MLP (GeGLU's GELU is the tanh approximation)."""
-    gate = x @ p["w_gate"]
-    up = x @ p["w_up"]
+    gate = linear(x, p["w_gate"])
+    up = linear(x, p["w_up"])
     act = (F.silu(gate) if variant == "swiglu"
            else F.gelu(gate, approximate="tanh"))
-    return (act * up) @ p["w_down"]
+    return linear(act * up, p["w_down"])
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -101,9 +112,13 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     The kernel reads the ``transpose(1, 2)`` views through their strides
     and writes a ``[B, S, Hq, hd]`` buffer, so no copy is made here on the
-    card.
+    card.  DTensors run the kernel on each rank's block.
     """
-    out = mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-              causal=causal, window=window, logit_cap=logit_cap,
-              scale=scale)
-    return out.transpose(1, 2)
+    def attend(q, k, v, q_offset=None):
+        out = mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  causal=causal, window=window, logit_cap=logit_cap,
+                  scale=scale, q_offset=q_offset)
+        return out.transpose(1, 2)
+    if is_dtensor(q):
+        return sharded_attention(q, k, v, attend)
+    return attend(q, k, v)

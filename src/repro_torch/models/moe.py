@@ -23,6 +23,13 @@ divide the model axis are padded with zero weights to
 ``E_pad = ceil(E/tp)*tp``.  Parameters are replicated on every rank; the
 gradients of the experts a rank does not own come from their owners
 (``distributed/functional.py``).
+
+A sharded step's ``DTensor`` input runs :func:`moe_block_sharded`: the
+same EP block on each rank's local tensors under ``local_map``, the
+experts that the plan shards over the model axis used as each rank's
+own (no gather), the others gathered and padded as above, the router
+replicated, the shared expert a tensor-parallel DTensor MLP beside it
+and the aux loss from the blocks' fractions summed over the data axes.
 """
 from __future__ import annotations
 
@@ -35,8 +42,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed import functional as dfn
 from repro_torch.kernels.moe_gmm.ops import gmm
-from repro_torch.launch.mesh import axis_sizes, is_abstract
+from repro_torch.launch.mesh import axis_sizes, batch_axes, is_abstract
 from repro_torch.models.layers import mlp_block
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
 
 
 def moe_capacity(num_tokens: int, moe: MoEConfig,
@@ -126,16 +138,21 @@ def _expert_mlps(buf, wg, wu, wd, variant: str):
     return gmm(act * h_up, wd)
 
 
-def _aux_loss(gates, topi, e: int, groups=(), n: int = 1):
-    """The load-balancing loss from the top-1 token fractions and the mean
-    gates; with ``groups``, of the whole batch: the fractions averaged
-    over the n equal blocks of the groups' ranks."""
+def _aux_fractions(gates, topi, e: int):
+    """(the top-1 token fractions [e], the mean gates [e]) of a block."""
     t = topi.shape[0]
     top1 = topi[:, 0]
     counts = torch.zeros(e, dtype=torch.float32, device=top1.device)
     frac_tokens = counts.scatter_add_(0, top1, torch.ones_like(
         top1, dtype=torch.float32)) / t
-    frac_gates = gates.mean(dim=0)
+    return frac_tokens, gates.mean(dim=0)
+
+
+def _aux_loss(gates, topi, e: int, groups=(), n: int = 1):
+    """The load-balancing loss from the top-1 token fractions and the mean
+    gates; with ``groups``, of the whole batch: the fractions averaged
+    over the n equal blocks of the groups' ranks."""
+    frac_tokens, frac_gates = _aux_fractions(gates, topi, e)
     if n > 1:
         fracs = dfn.all_reduce_sum(torch.cat([frac_tokens, frac_gates]),
                                    groups) / n
@@ -168,6 +185,9 @@ def moe_mlp(x, p, moe: MoEConfig, mlp_variant: str, *,
     each slot's place in its expert's queue are the whole batch's, as
     the reference's global view computes them: a block keeps the slots
     that the whole batch's dispatch keeps."""
+    if _is_dtensor(x):
+        return moe_block_sharded(x, p, moe, mlp_variant, ep, aux=False)[0], \
+            None
     if ep is not None:
         return _moe_ep(x, p, moe, mlp_variant, ep, constrain)
     b, s, d = x.shape
@@ -246,9 +266,13 @@ def _pad_experts(w, e_pad: int):
 
 
 def _moe_ep(x, p, moe: MoEConfig, mlp_variant: str, ep: EPSpec,
-            constrain=None):
+            constrain=None, *, local_experts: bool = False,
+            shared: bool = True):
     """The expert-parallel forward on this rank's block x [B, S, D]:
-    (y [B, S, D], (gates, topi) of the block's tokens)."""
+    (y [B, S, D], (gates, topi) of the block's tokens).  With
+    ``local_experts`` the expert weights are this rank's own [E/tp, ...]
+    (E divides the model axis); ``shared=False`` leaves the shared
+    expert to the caller."""
     if is_abstract(ep.mesh):
         raise ValueError("an EPSpec over an AbstractMesh plans a layout; "
                          "running the block needs a DeviceMesh")
@@ -279,9 +303,13 @@ def _moe_ep(x, p, moe: MoEConfig, mlp_variant: str, ep: EPSpec,
     # the experts it does not own comes from their owners (summed over the
     # model group; 1/tp where every owner saw tp copies of each slot)
     scale = 1.0 if split or tp == 1 else 1.0 / tp
-    ws = [dfn.reduce_grad(_pad_experts(p[n], e_pad), [group], scale)
-          [me * e_loc:(me + 1) * e_loc] for n in ("w_gate", "w_up",
-                                                   "w_down")]
+    if local_experts:
+        ws = [dfn.reduce_grad(p[n], (), scale)
+              for n in ("w_gate", "w_up", "w_down")]
+    else:
+        ws = [dfn.reduce_grad(_pad_experts(p[n], e_pad), [group], scale)
+              [me * e_loc:(me + 1) * e_loc] for n in ("w_gate", "w_up",
+                                                       "w_down")]
 
     buf, routing = _dispatch_local(xt_l, topi_l, topw_l, e_pad, cap)
     # to the expert owners: [e_pad, C, D] -> [tp (source), e_loc, C, D]
@@ -298,9 +326,70 @@ def _moe_ep(x, p, moe: MoEConfig, mlp_variant: str, ep: EPSpec,
     y = _combine_local(out, routing, topw_l, t_loc, d, x.dtype)
     if split:
         y = dfn.gather(y, group)
-    if moe.shared_expert_ff:
+    if moe.shared_expert_ff and shared:
         y = y + mlp_block(xt, p["shared"], mlp_variant)
     return y.reshape(b, s, d), (gates, topi)
+
+
+def moe_block_sharded(x, p, moe: MoEConfig, mlp_variant: str,
+                      ep: Optional[EPSpec] = None, *, aux: bool = True):
+    """The EP block on a ``DTensor`` x [B, S, D] (a sharded step; ``p``
+    reads the weights gathered over the data axes): (y, the whole batch's
+    aux loss, or None without ``aux``), both DTensors."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.distributed.local import settle
+    x = settle(x)
+    mesh = x.device_mesh
+    if ep is None:
+        ep = EPSpec(mesh, batch_axes(mesh))
+    names = mesh.mesh_dim_names
+    data_dims = [names.index(a) for a in ep.data_axes]
+    mi = names.index(ep.model_axis)
+    rep = [Replicate()] * mesh.ndim
+    x_pl = [x.placements[i] if i in data_dims and x.placements[i].is_shard(0)
+            else Replicate() for i in range(mesh.ndim)]
+    summed = [Partial() if i in data_dims else Replicate()
+              for i in range(mesh.ndim)]
+    wg = p["w_gate"]
+    local_experts = (ep.tp > 1 and wg.placements[mi].is_shard(0)
+                     and moe.num_experts % ep.tp == 0)
+    w_pl = list(rep)
+    if local_experts:
+        w_pl[mi] = Shard(0)
+    w_grad = [Partial() if i in data_dims else w_pl[i]
+              for i in range(mesh.ndim)]
+    e = moe.num_experts
+
+    def local(xl, router, w_gate, w_up, w_down):
+        pl = {"router": router, "w_gate": w_gate, "w_up": w_up,
+              "w_down": w_down}
+        y, (gates, topi) = _moe_ep(xl, pl, moe, mlp_variant, ep,
+                                   local_experts=local_experts,
+                                   shared=False)
+        if not aux:
+            return y
+        return y, torch.cat(_aux_fractions(gates, topi, e))
+
+    out_pl = (tuple(x_pl), tuple(summed)) if aux else list(x_pl)
+    fn = local_map(local, out_placements=out_pl,
+                   in_placements=(tuple(x_pl), tuple(rep)) + (tuple(w_pl),)
+                   * 3,
+                   in_grad_placements=(tuple(x_pl), tuple(summed))
+                   + (tuple(w_grad),) * 3, device_mesh=mesh)
+    x = x.redistribute(mesh, x_pl)
+    ws = [p[n].redistribute(mesh, w_pl) for n in ("w_gate", "w_up",
+                                                   "w_down")]
+    out = fn(x, p["router"].redistribute(mesh, rep), *ws)
+    y, fracs = out if aux else (out, None)
+    if moe.shared_expert_ff:
+        y = y + mlp_block(x, p["shared"], mlp_variant)
+    if not aux:
+        return y, None
+    fracs = fracs.redistribute(mesh, rep)
+    if ep.dp > 1:
+        fracs = fracs / ep.dp
+    return y, e * torch.sum(fracs[:e] * fracs[e:])
 
 
 def moe_block_ep(x, p, moe: MoEConfig, mlp_variant: str, ep: EPSpec, *,
@@ -318,6 +407,8 @@ def moe_block_ep(x, p, moe: MoEConfig, mlp_variant: str, ep: EPSpec, *,
 def moe_block(x, p, moe: MoEConfig, mlp_variant: str, *,
               capacity_factor: float = 1.25, ep=None, constrain=None,
               shard: Optional[dfn.BatchShard] = None):
+    if _is_dtensor(x):
+        return moe_block_sharded(x, p, moe, mlp_variant, ep)
     if ep is not None:
         return moe_block_ep(x, p, moe, mlp_variant, ep, constrain=constrain)
     return moe_block_global(x, p, moe, mlp_variant,

@@ -79,9 +79,14 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from torch.distributed.tensor import Replicate, Shard
+
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import functional as dfn
+from repro_torch.distributed.local import (coord, heads_weight, is_dtensor,
+                                           linear, settle, shard_dims,
+                                           sharded_decode, write_slots)
 from repro_torch.kernels.decode_attention.ops import gqa_decode
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (attention, mlp_block, mrope_tables,
@@ -235,13 +240,18 @@ def _project_qkv(x, p, cfg: ModelConfig, rope, constrain=_ID):
     the RoPE or M-RoPE tables of the pass (:func:`_rope`)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = constrain((x @ p["wq"]).reshape(b, s, cfg.num_heads, hd),
-                  "act_heads")
-    k = constrain((x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd),
-                  "act_kv_heads")
-    v = constrain((x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd),
-                  "act_kv_heads")
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    def proj(name, h):
+        return linear(x, heads_weight(p[name], h)).reshape(b, s, h, hd)
+    q = constrain(proj("wq", hq), "act_heads")
+    k = constrain(proj("wk", hkv), "act_kv_heads")
+    v = constrain(proj("wv", hkv), "act_kv_heads")
     return rotate(q, *rope), rotate(k, *rope), v
+
+
+def _wo(p, cfg: ModelConfig):
+    """The output projection, its head blocks whole on a sharded step."""
+    return heads_weight(p["wo"], cfg.num_heads, 0)
 
 
 def _pad_heads(t, hq: int, target: int):
@@ -269,12 +279,13 @@ def decode_positions(idx: int, cache_len: int, window: int, device):
     return torch.where(valid, kv_pos, -1).to(torch.int32)
 
 
-def _ring_write(buf, vals, start: int) -> None:
-    """Write ``vals`` into the ring ``buf`` from slot ``start`` on, in
-    place."""
-    c, n = buf.shape[1], vals.shape[1]
-    idx = (torch.arange(n, device=buf.device) + start) % c
-    buf.index_copy_(1, idx, vals)
+def _decoder(scale: float, cap: float):
+    """The decode kernel as :func:`~repro_torch.distributed.local
+    .sharded_decode` calls it on each rank's block."""
+    def decode(q, k, v, kv_pos, return_lse):
+        return gqa_decode(q, k, v, kv_pos, scale=scale, logit_cap=cap,
+                          return_lse=return_lse)
+    return decode
 
 
 def attention_block(x, p, cfg: ModelConfig, *, kind: str, mode: str,
@@ -302,14 +313,18 @@ def attention_block(x, p, cfg: ModelConfig, *, kind: str, mode: str,
         idx = cache["index"]
         cache_len = cache["k"].shape[1]
         slot = idx % cache_len if local else min(idx, cache_len - 1)
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
+        write_slots(cache["k"], k, slot)
+        write_slots(cache["v"], v, slot)
         kv_pos = cache.get("kv_pos")
         if kv_pos is None:
             kv_pos = decode_positions(idx, cache_len, window, x.device)
-        out = gqa_decode(q[:, 0], cache["k"], cache["v"], kv_pos,
-                         scale=scale, logit_cap=cap)
-        return out.reshape(b, 1, -1) @ p["wo"], cache
+        if is_dtensor(q):
+            out = sharded_decode(q[:, 0], cache["k"], cache["v"], kv_pos,
+                                 _decoder(scale, cap))
+        else:
+            out = gqa_decode(q[:, 0], cache["k"], cache["v"], kv_pos,
+                             scale=scale, logit_cap=cap)
+        return linear(out.reshape(b, 1, -1), _wo(p, cfg)), cache
     if mode not in _FULL_PASS:
         raise ValueError(f"unknown mode {mode!r}")
 
@@ -322,16 +337,11 @@ def attention_block(x, p, cfg: ModelConfig, *, kind: str, mode: str,
     else:
         out = attention(q, k, v, window=window, logit_cap=cap, scale=scale)
     out = constrain(out, "act_heads")
-    if cache is not None:
-        if local:
-            keep = min(window, s)
-            start = (s - keep) % cache["k"].shape[1]
-            _ring_write(cache["k"], k[:, s - keep:], start)
-            _ring_write(cache["v"], v[:, s - keep:], start)
-        else:
-            cache["k"][:, :s] = k
-            cache["v"][:, :s] = v
-    return out.reshape(b, s, -1) @ p["wo"], cache
+    if cache is not None:      # a local layer keeps its last window
+        keep = min(window, s) if local else s
+        write_slots(cache["k"], k[:, s - keep:], s - keep)
+        write_slots(cache["v"], v[:, s - keep:], s - keep)
+    return linear(out.reshape(b, s, -1), _wo(p, cfg)), cache
 
 
 def cross_attention_block(x, p, cfg: ModelConfig, *, mode: str, cache,
@@ -349,21 +359,28 @@ def cross_attention_block(x, p, cfg: ModelConfig, *, mode: str, cache,
     hd = cfg.resolved_head_dim
     scale = _attn_scale(cfg)
     cap = cfg.attn_logit_softcap
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    q = linear(x, heads_weight(p["wq"], hq)).reshape(b, s, hq, hd)
     if mode == "decode":
-        out = gqa_decode(q[:, 0], cache["cross_k"], cache["cross_v"],
-                         cache["cross_kv_pos"], scale=scale, logit_cap=cap)
-        return out.reshape(b, 1, -1) @ p["wo"]
+        if is_dtensor(q):
+            out = sharded_decode(q[:, 0], cache["cross_k"],
+                                 cache["cross_v"], cache["cross_kv_pos"],
+                                 _decoder(scale, cap))
+        else:
+            out = gqa_decode(q[:, 0], cache["cross_k"], cache["cross_v"],
+                             cache["cross_kv_pos"], scale=scale,
+                             logit_cap=cap)
+        return linear(out.reshape(b, 1, -1), _wo(p, cfg))
     if mode not in _FULL_PASS:
         raise ValueError(f"unknown mode {mode!r}")
     se = enc_out.shape[1]
-    k = (enc_out @ p["wk"]).reshape(b, se, cfg.num_kv_heads, hd)
-    v = (enc_out @ p["wv"]).reshape(b, se, cfg.num_kv_heads, hd)
+    k = linear(enc_out, heads_weight(p["wk"], hkv)).reshape(b, se, hkv, hd)
+    v = linear(enc_out, heads_weight(p["wv"], hkv)).reshape(b, se, hkv, hd)
     if cache is not None:
-        cache["cross_k"].copy_(k)
-        cache["cross_v"].copy_(v)
+        write_slots(cache["cross_k"], k, 0)
+        write_slots(cache["cross_v"], v, 0)
     out = attention(q, k, v, causal=False, logit_cap=cap, scale=scale)
-    return out.reshape(b, s, -1) @ p["wo"]
+    return linear(out.reshape(b, s, -1), _wo(p, cfg))
 
 
 # --------------------------------------------------------------------------
@@ -523,7 +540,7 @@ def encode(params, cfg: ModelConfig, enc_emb, constrain=_ID):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(h, p["attn"], cfg, rope, constrain)
         out = attention(q, k, v, causal=False, scale=scale)
-        x = x + out.reshape(b, s, -1) @ p["attn"]["wo"]
+        x = x + linear(out.reshape(b, s, -1), _wo(p["attn"], cfg))
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         x = constrain(x + mlp_block(h, p["mlp"], cfg.mlp_variant),
                       "act_resid")
@@ -540,12 +557,81 @@ def _embed(params, cfg: ModelConfig, inputs):
     they are."""
     if cfg.embedding_inputs and inputs.dim() == 3:
         return inputs
-    return params["embed"][inputs].to(DTYPES[cfg.dtype])
+    table = params["embed"]
+    if is_dtensor(table):
+        return _embed_sharded(table, inputs).to(DTYPES[cfg.dtype])
+    return table[inputs].to(DTYPES[cfg.dtype])
+
+
+def _embed_sharded(table, ids):
+    """DTensor ids [B, S] looked up in a DTensor table [V, D] on each
+    rank's block: where the vocabulary is sharded, each rank looks up the
+    ids its rows hold (0 for the others) and the partial sums are summed
+    over the vocabulary's mesh dims (replicated there)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    vdims = shard_dims(table, 0)
+    v_idx, n_v = coord(mesh, vdims)
+    v_l = table.shape[0] // n_v
+    id_pl = [p if p.is_shard(0) else Replicate() for p in ids.placements]
+    out_pl, t_grad = [], []
+    for i, p in enumerate(table.placements):
+        if i in vdims:
+            out_pl.append(Partial())
+            t_grad.append(p)
+        elif id_pl[i].is_shard(0):
+            out_pl.append(Shard(0))
+            t_grad.append(Partial())
+        elif p.is_shard(1):
+            out_pl.append(Shard(2))
+            t_grad.append(p)
+        else:
+            out_pl.append(Replicate())
+            t_grad.append(p)
+
+    def local(tl, il):
+        if not vdims:
+            return tl[il]
+        loc = il.long() - v_idx * v_l
+        mine = (loc >= 0) & (loc < v_l)
+        return tl[loc.clamp(0, v_l - 1)] * mine[..., None].to(tl.dtype)
+
+    fn = local_map(local, out_placements=out_pl,
+                   in_placements=(tuple(table.placements), tuple(id_pl)),
+                   in_grad_placements=(tuple(t_grad), tuple(id_pl)),
+                   device_mesh=mesh)
+    out = fn(table, ids.redistribute(mesh, id_pl))
+    if not vdims:
+        return out
+    return out.redistribute(mesh, [Replicate() if i in vdims else p
+                                   for i, p in enumerate(out_pl)])
+
+
+def _logits_layout(h, head):
+    """h [B, S, D] placed for the plan's ``logits`` spec before the head's
+    product, so that no rank computes logits it does not keep: the whole
+    sequence where the head is vocab-sharded (h gathered where the
+    residual is sequence-sharded, not the logits), else each rank's block
+    of the sequence over the model axis where it divides."""
+    mesh = h.device_mesh
+    if shard_dims(head, 1):
+        want = [Replicate() if p.is_shard(1) else p for p in h.placements]
+    else:
+        m = mesh.mesh_dim_names.index("model")
+        if not (h.placements[m].is_replicate()
+                and h.shape[1] % mesh.size(m) == 0):
+            return h
+        want = list(h.placements)
+        want[m] = Shard(1)
+    return h.redistribute(mesh, want)
 
 
 def _logits(params, cfg: ModelConfig, h, constrain=_ID):
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = h @ head
+    if is_dtensor(h):
+        h = _logits_layout(h, head)
+    logits = linear(h, head)
     if cfg.final_logit_softcap:
         logits = softcap(logits.float(),
                          cfg.final_logit_softcap).to(h.dtype)
@@ -557,11 +643,59 @@ def cross_entropy(logits, labels):
     dtype) at ``labels`` [B, S], as the reference computes it: the
     max-shifted log-sum-exp in float32 (the max taken without a
     gradient), the label's logit picked by ``gather``, no one-hot."""
+    if is_dtensor(logits):
+        return _cross_entropy_sharded(logits, labels)
     m = logits.detach().amax(dim=-1, keepdim=True)
     shifted = (logits - m).float()
     lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0].float()
     picked = shifted.gather(-1, labels[..., None].long())[..., 0]
     return lse - (picked + m[..., 0].float())
+
+
+def _cross_entropy_sharded(logits, labels):
+    """:func:`cross_entropy` of DTensor logits, on each rank's block:
+    where the vocabulary is sharded, the max, the sum of exponentials and
+    the label's logit (0 on the ranks that do not hold it) are each
+    reduced over the vocabulary's mesh dims ([B, S] each, no gather of
+    the logits), and the loss is replicated over them."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    logits = settle(logits)
+    mesh = logits.device_mesh
+    vdims = [i for i, p in enumerate(logits.placements) if p.is_shard(2)]
+    v_idx, n_v = 0, 1
+    for i in vdims:
+        v_idx = v_idx * mesh.size(i) + mesh.get_local_rank(i)
+        n_v *= mesh.size(i)
+    groups = [mesh.get_group(i) for i in vdims]
+    pl = [Replicate() if i in vdims else p
+          for i, p in enumerate(logits.placements)]
+    lab_pl = [p if p.is_shard() and p.dim < 2 else Replicate() for p in pl]
+    v_l = logits.shape[-1] // n_v
+
+    def local(lg, lab):
+        m = lg.detach().amax(dim=-1, keepdim=True)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        shifted = (lg - m).float()
+        se = torch.exp(shifted).sum(dim=-1)
+        if not groups:
+            picked = shifted.gather(-1, lab[..., None].long())[..., 0]
+        else:
+            loc = lab.long() - v_idx * v_l
+            mine = (loc >= 0) & (loc < v_l)
+            picked = torch.where(mine, shifted.gather(
+                -1, loc.clamp(0, v_l - 1)[..., None])[..., 0], 0.0)
+            se = dfn.sum_replicated(se, groups)
+            picked = dfn.sum_replicated(picked, groups)
+        lse = torch.log(se) + m[..., 0].float()
+        return lse - (picked + m[..., 0].float())
+
+    fn = local_map(local, out_placements=list(lab_pl),
+                   in_placements=(tuple(logits.placements), tuple(lab_pl)),
+                   device_mesh=mesh)
+    return fn(logits, labels.redistribute(mesh, lab_pl))
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False,
@@ -656,11 +790,13 @@ def clone_cache(caches: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def prefill(params, cfg: ModelConfig, batch, max_len: int, *,
-            constrain=_ID, ep=None):
+            constrain=_ID, ep=None, cache_fn=None):
     """Run the full prompt; return (last-position logits [B, V], filled
     cache).  ``batch``: {"tokens": [B, S] int or "embeddings": [B, S, D],
     optional "positions" ([B, S], or [3, B, S] for M-RoPE), and for an
-    encoder-decoder "enc_emb": [B, Se, D]}."""
+    encoder-decoder "enc_emb": [B, Se, D]}.  ``cache_fn``: allocates the
+    cache, :func:`init_cache`'s arguments (a sharded step's
+    ``Plan.init_cache``)."""
     enc_out = (encode(params, cfg, batch["enc_emb"], constrain)
                if cfg.is_encoder_decoder else None)
     x = _embed(params, cfg, batch["tokens"] if "tokens" in batch
@@ -671,9 +807,9 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int, *,
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         if cfg.mrope:
             positions = positions[None].expand(3, b, s)
-    caches = init_cache(cfg, b, max_len,
-                        enc_out.shape[1] if enc_out is not None else 0,
-                        device=x.device)
+    caches = (cache_fn or init_cache)(
+        cfg, b, max_len, enc_out.shape[1] if enc_out is not None else 0,
+        device=x.device)
     h, new_caches, _ = apply_stack(params, cfg, x, mode="prefill",
                                    positions=positions, caches=caches,
                                    enc_out=enc_out, constrain=constrain,

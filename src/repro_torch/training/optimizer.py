@@ -11,6 +11,13 @@ parameter's name in ``named_parameters()`` (``layers.0.attn.wq``).
 Unlike the reference's functional update, :func:`adamw_update` writes
 the parameters and the moments IN PLACE, under ``torch.no_grad()``: a
 step would otherwise hold a second copy of the model and its moments.
+
+A sharded state (``Plan.shard_state``: parameters, moments and gradients
+as ``DTensor``s, each gradient in its parameter's placements) is updated
+on each rank's shards, and :func:`global_norm` is the norm over every
+shard of every rank: each rank's sum of squares (a leaf replicated over
+some mesh dims counted once over them) summed by one all-reduce, so that
+every rank clips by the same factor.
 """
 from __future__ import annotations
 
@@ -19,6 +26,10 @@ import math
 from typing import Dict
 
 import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
+
+from repro_torch.distributed.local import is_dtensor
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -64,9 +75,32 @@ def init_opt_state(params, oc: OptConfig) -> Dict[str, object]:
 def global_norm(tree) -> torch.Tensor:
     """The float32 2-norm of every leaf of ``tree`` (a dict of tensors or
     a sequence of them) together."""
-    leaves = tree.values() if isinstance(tree, dict) else tree
+    leaves = list(tree.values() if isinstance(tree, dict) else tree)
+    if leaves and is_dtensor(leaves[0]):
+        return _sharded_norm(leaves)
     return torch.sqrt(torch.sum(torch.stack(
         [torch.sum(torch.square(t.float())) for t in leaves])))
+
+
+def _sharded_norm(leaves) -> torch.Tensor:
+    """The 2-norm of DTensor leaves over every rank's shards: one
+    all-reduce over the group of the summed local squares, each leaf's
+    divided by the number of its replicas."""
+    parts = []
+    for t in leaves:
+        sq = torch.sum(torch.square(t.to_local().float()))
+        reps = 1
+        for i, p in enumerate(t.placements):
+            if not p.is_shard():
+                reps *= t.device_mesh.size(i)
+        parts.append(sq / reps if reps > 1 else sq)
+    total = funcol.all_reduce(torch.sum(torch.stack(parts)), "sum",
+                              dist.group.WORLD)
+    return torch.sqrt(total)
+
+
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
 
 
 @torch.no_grad()
@@ -84,16 +118,17 @@ def adamw_update(grads: Dict[str, torch.Tensor], opt_state, params,
     bc1 = 1 - oc.b1 ** t
     bc2 = 1 - oc.b2 ** t
     mu, nu = opt_state["mu"], opt_state["nu"]
-    for name, p in params.named_parameters():
-        g = grads[name].float() * scale
-        m32 = oc.b1 * mu[name].float() + (1 - oc.b1) * g
-        v32 = oc.b2 * nu[name].float() + (1 - oc.b2) * torch.square(g)
+    for name, param in params.named_parameters():
+        p, m_, v_ = _local(param), _local(mu[name]), _local(nu[name])
+        g = _local(grads[name]).float() * scale
+        m32 = oc.b1 * m_.float() + (1 - oc.b1) * g
+        v32 = oc.b2 * v_.float() + (1 - oc.b2) * torch.square(g)
         del g
         delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + oc.eps)
         if p.dim() >= 2:           # decoupled weight decay on matrices only
             delta = delta + oc.weight_decay * p.float()
         p.copy_(p.float() - lr * delta)
-        mu[name].copy_(m32)
-        nu[name].copy_(v32)
+        m_.copy_(m32)
+        v_.copy_(v32)
     opt_state["step"] = step + 1
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -80,11 +80,13 @@ def first_arrival_weights(num_micro: int, flight: int,
 
 
 def make_raptor_train_step(cfg: ModelConfig, oc: OptConfig, *,
-                           plan=None, constrain=None, ep=None,
-                           remat: bool = True, device=None):
+                           plan=None, batch_blocks=None, constrain=None,
+                           ep=None, remat: bool = True, device=None):
     """The plain step: flight behaviour enters only through
     ``batch["loss_weight"]``, built by :func:`signals_to_weights`; with
-    ``plan`` each pod's rank takes its shard, and the loss renormalises
-    over the surviving pods' samples of the whole batch."""
-    return make_train_step(cfg, oc, plan=plan, constrain=constrain, ep=ep,
+    ``plan`` (the sharded step) or ``batch_blocks`` (``make_train_step``)
+    each pod's rank takes its shard, and the loss renormalises over the
+    surviving pods' samples of the whole batch."""
+    return make_train_step(cfg, oc, plan=plan, batch_blocks=batch_blocks,
+                           constrain=constrain, ep=ep,
                            options=StepOptions(remat=remat), device=device)

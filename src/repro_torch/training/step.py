@@ -9,18 +9,32 @@ updates the state in place (:func:`~repro_torch.training.optimizer
 .adamw_update`).  ``state = {"params": ParamTree, "opt": {"mu", "nu":
 {name: tensor}, "step": int32 tensor}}``.
 
-Data parallelism: with ``plan=`` a sharding plan over a ``DeviceMesh``,
-every rank takes its block of the global batch over the plan's batch
-axes (``Plan.local_batch``; a batch that does not divide stays whole on
-every rank), the loss is the block's share of the whole batch's
-(``loss_fn(..., shard=)``: the ``loss_weight`` renormalisation over the
-whole batch, the MoE layers' dispatch and aux loss as over the whole
-batch), and the step averages the gradients (and the loss metrics) over
-those axes before ``grad_transform`` -- the gradient of the reference's
-step on the whole batch.  Parameters and moments stay replicated on
-every rank.  ``constrain`` alone (the reference's
-``constrain=plan.constrain``) is a layout hint: the step then runs the
-whole batch on every rank.
+A plan selects one of two data-parallel steps, each by its own
+argument:
+
+- ``plan=`` (the path kept): the sharded step.  The state comes from
+  ``plan.shard_state`` (parameters and moments as ``DTensor``s, ZeRO-3
+  over the data axes and tensor parallel over ``model``, the reference's
+  ``in_shardings``); the batch is placed by the plan, the loss runs on
+  DTensors (each weight gathered over the data axes where a layer reads
+  it, the kernels on each rank's shards, the MoE layers through the EP
+  block), each gradient comes back in its parameter's placements
+  (reduce-scattered over the data axes) and AdamW updates each rank's
+  shards; the metrics are the whole batch's.  A plain state raises.
+- ``batch_blocks=``: replicated weights, each rank its block of the
+  global batch over the plan's batch axes (``Plan.local_batch``; a batch
+  that does not divide stays whole on every rank), for an MoE config
+  without ``ep`` only: its layers then dispatch as over the whole batch
+  (``loss_fn(..., shard=)``: capacity and each slot's place in its
+  expert's queue from every block's counts, the aux loss and the
+  ``loss_weight`` renormalisation over the whole batch), which the
+  sharded step's EP block does not reproduce.  The step averages the
+  gradients (and the loss metrics) over the batch axes before
+  ``grad_transform`` -- the gradient of the reference's step on the
+  whole batch.  A dense config raises, naming ``plan=``.
+
+``constrain`` alone (the reference's ``constrain=plan.constrain``) is a
+layout hint: the step then runs the whole batch on every rank.
 """
 from __future__ import annotations
 
@@ -34,6 +48,7 @@ import torch.distributed as dist
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.functional import BatchShard
+from repro_torch.distributed.local import is_dtensor
 from repro_torch.distributed.sharding import Plan
 from repro_torch.launch.mesh import is_abstract
 from repro_torch.models import transformer as tfm
@@ -90,7 +105,8 @@ def batch_to(cfg: ModelConfig, batch, device) -> Dict[str, torch.Tensor]:
 
 
 def make_train_step(cfg: ModelConfig, oc: OptConfig, *,
-                    plan: Optional[Plan] = None, constrain=None,
+                    plan: Optional[Plan] = None,
+                    batch_blocks: Optional[Plan] = None, constrain=None,
                     options: StepOptions = StepOptions(),
                     grad_transform: Optional[Callable] = None, ep=None,
                     device=None):
@@ -100,33 +116,69 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, *,
     given: without one this raises) by :func:`batch_to`; the state is
     updated in place.  ``grad_transform(grads)`` ({name: gradient} ->
     the same) is the injection point for compression and straggler
-    weights (``repro_torch.distributed.collectives``).  With ``plan`` (a
-    plan over a ``DeviceMesh``) the step is data-parallel, and
-    ``constrain`` defaults to ``plan.constrain`` (module docstring)."""
+    weights (``repro_torch.distributed.collectives``).  ``plan`` (the
+    sharded step, on a ``plan.shard_state`` state) or ``batch_blocks``
+    (an MoE config's batch blocks with replicated weights), each a plan
+    over a ``DeviceMesh``, makes the step data-parallel; ``constrain``
+    then defaults to the plan's (module docstring)."""
     for name in ("grad_compression", "raptor_k_of_n"):
         if getattr(options, name) is not None:
             raise ValueError(
                 f"StepOptions.{name} is the reference's unread field; pass "
                 f"grad_transform=compress_grads(...) for compression, and "
                 f"loss_weight from signals_to_weights(..., k=) for k-of-n")
-    if plan is not None:
-        if is_abstract(plan.mesh):
+    if plan is not None and batch_blocks is not None:
+        raise ValueError("pass plan= (the sharded step) or batch_blocks=, "
+                         "not both")
+    if batch_blocks is not None and (cfg.moe is None or ep is not None):
+        raise ValueError("batch_blocks= is for an MoE config's dispatch "
+                         "over the whole batch, without ep; pass plan= and "
+                         "a state from plan.shard_state")
+    dp = plan if plan is not None else batch_blocks
+    if dp is not None:
+        if is_abstract(dp.mesh):
             raise ValueError("a data-parallel step needs a plan over a "
                              "DeviceMesh; this plan's mesh is abstract")
-        constrain = constrain or plan.constrain
+        constrain = constrain or dp.constrain
     dev = resolve_device(device)
     loss_fn = make_loss_fn(cfg, constrain, options.remat, ep=ep,
                            remat_policy=options.remat_policy)
 
+    def sharded_step(state, batch):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        params = state["params"]
+        names, leaves = zip(*params.named_parameters())
+        batch = plan.shard_batch(batch_to(cfg, batch, dev))
+        with implicit_replication(), torch.enable_grad():
+            loss, metrics = loss_fn(plan.gathered(params), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        grads = {n: g.redistribute(p.device_mesh, p.placements)
+                 for n, g, p in zip(names, grads, leaves)}
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        params, opt, opt_metrics = adamw_update(grads, state["opt"], params,
+                                                oc)
+        del grads
+        m = {"loss": _whole(loss), **{k: _whole(v) for k, v in
+                                      metrics.items()}, **opt_metrics}
+        return {"params": params, "opt": opt}, m
+
     def train_step(state, batch):
         params = state["params"]
         names, leaves = zip(*params.named_parameters())
+        if is_dtensor(leaves[0]) != (plan is not None):
+            raise ValueError("a state from plan.shard_state runs through "
+                             "make_train_step(plan=), and only such a state")
+        if plan is not None:
+            return sharded_step(state, batch)
         batch = batch_to(cfg, batch, dev)
         shard = None
-        if plan is not None:
-            shard = plan.batch_shard(batch["labels"].shape[0])
+        if batch_blocks is not None:
+            shard = batch_blocks.batch_shard(batch["labels"].shape[0])
         if shard is not None:
-            batch = plan.local_batch(batch)
+            batch = batch_blocks.local_batch(batch)
         with torch.enable_grad():
             loss, metrics = loss_fn(params, batch, shard)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
@@ -146,6 +198,12 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig, *,
         return {"params": params, "opt": opt}, m
 
     return train_step
+
+
+def _whole(t):
+    """A metric as a plain tensor (a DTensor's whole value)."""
+    t = t.detach()
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def init_train_state(cfg: ModelConfig, oc: OptConfig, seed: int = 0, *,

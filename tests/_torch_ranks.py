@@ -200,9 +200,11 @@ def moe_ep(args):
 
 
 def dp_step(args):
-    """One ``make_train_step`` step through a plan over a (data, model)
-    mesh on the global batch ``args["batch"]``: the metrics, the updated
-    parameters and the gradients that reach ``grad_transform``."""
+    """One data-parallel ``make_train_step`` step over a (data, model)
+    mesh on the global batch ``args["batch"]``: a dense config's through
+    ``plan=`` on a ``plan.shard_state`` state, an MoE config's through
+    ``batch_blocks=``; the metrics, the updated parameters and the
+    gradients that reach ``grad_transform`` (each whole)."""
     import torch
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.distributed.sharding import Plan
@@ -217,16 +219,23 @@ def dp_step(args):
     oc = opt.OptConfig(**args["opt"])
     seen = {}
 
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
     def record(grads):
-        seen.update(_np({k: g.clone() for k, g in grads.items()}))
+        seen.update(_np({k: whole(g).clone() for k, g in grads.items()}))
         return grads
-    step = make_train_step(cfg, oc, plan=plan,
-                           options=StepOptions(remat=False),
-                           grad_transform=record, device="cpu")
     state = {"params": params, "opt": opt.init_opt_state(params, oc)}
+    if cfg.moe is None:
+        kw = dict(plan=plan)
+        state = plan.shard_state(state)
+    else:
+        kw = dict(batch_blocks=plan)
+    step = make_train_step(cfg, oc, options=StepOptions(remat=False),
+                           grad_transform=record, device="cpu", **kw)
     state, m = step(state, args["batch"])
     return {"metrics": {k: float(v) for k, v in m.items()},
-            "params": {n: _np(t) for n, t in
+            "params": {n: _np(whole(t)) for n, t in
                        state["params"].named_parameters()},
             "grads": seen}
 
@@ -252,9 +261,113 @@ def sweeps(args):
     return out
 
 
+def _cfg(args):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    cfg = reduced_config(get_config(args["arch"]))
+    return dataclasses.replace(cfg, **args.get("overrides", {}))
+
+
+def _refusal(fn):
+    """The message of the ``ValueError`` that ``fn()`` raises, or None."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def sharded_step(args):
+    """The plan run sharded on a (data, model) mesh of
+    ``args["shape"]``: one ``make_train_step(..., plan=)`` step on a
+    ``plan.shard_state`` state (the metrics, every gradient whole, this
+    rank's local bytes of parameters and moments), then a sharded prefill
+    of ``args["prompt"]`` (the last logits whole) and ``args["steps"]``
+    greedy decode steps (the tokens)."""
+    import torch
+    from repro_torch.distributed.sharding import Plan
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tt
+    from repro_torch.serving.step import (greedy_sample, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.step import StepOptions, make_train_step
+    cfg = _cfg(args)
+    mesh = make_host_mesh(*args["shape"])
+    plan = Plan(mesh, cfg)
+    ep = None
+    if cfg.moe is not None and "capacity_factor" in args:
+        from repro_torch.models.moe import EPSpec
+        ep = EPSpec(mesh, plan.data, capacity_factor=args["capacity_factor"])
+    out = {}
+    if "batch" in args:
+        params = tt.params_from_numpy(args["params"], device="cpu")
+        params.requires_grad_(True)
+        oc = opt.OptConfig(**args["opt"])
+        state = plan.shard_state({"params": params,
+                                  "opt": opt.init_opt_state(params, oc)})
+        out["local_bytes"] = sum(
+            t.to_local().numel() * t.element_size()
+            for tree in (dict(state["params"].named_parameters()),
+                         state["opt"]["mu"], state["opt"]["nu"])
+            for t in tree.values())
+        seen = {}
+
+        def record(grads):
+            seen.update({k: _np(g.full_tensor()) for k, g in grads.items()})
+            return grads
+        step = make_train_step(cfg, oc, plan=plan,
+                               options=StepOptions(remat=args.get("remat",
+                                                                  False)),
+                               grad_transform=record, ep=ep,
+                               device="cpu")
+        state, m = step(state, args["batch"])
+        out["metrics"] = {k: float(v) for k, v in m.items()}
+        out["grads"] = seen
+    if "prompt" in args:
+        plain = tt.params_from_numpy(args["params"], device="cpu")
+        prompt = {k: torch.as_tensor(v) for k, v in args["prompt"].items()}
+        s = next(iter(prompt.values())).shape[1]
+        # a plan's steps refuse plain parameters and a plain state
+        oc = opt.OptConfig(**args["opt"])
+        out["refused"] = [_refusal(fn) for fn in (
+            lambda: make_prefill_step(cfg, s + 1, plan=plan)(plain, prompt),
+            lambda: make_decode_step(cfg, plan=plan)(plain, None, None),
+            lambda: make_train_step(cfg, oc, plan=plan, device="cpu")(
+                {"params": plain, "opt": opt.init_opt_state(plain, oc)},
+                args.get("batch")))]
+        params = plan.shard_params(plain)
+        logits, cache = make_prefill_step(cfg, s + args["steps"], ep=ep,
+                                          plan=plan)(params, prompt)
+        logits = logits.full_tensor()
+        out["logits"] = _np(logits)
+        decode = make_decode_step(cfg, ep=ep, plan=plan)
+        toks = []
+        for _ in range(args["steps"]):
+            tok = greedy_sample(logits)
+            toks.append(_np(tok))
+            logits, cache = decode(params, cache, tok[:, None])
+            logits = logits.full_tensor()
+        out["tokens"] = toks
+        out["decode_logits"] = _np(logits)
+    return out
+
+
+def count_cells(args):
+    """``dryrun.count_cell`` on real tensors over a (data, model) mesh of
+    ``args["shape"]``, for each cell of ``args["cells"]``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(*args["shape"])
+    with dryrun.counting_hooks():
+        return [dryrun.count_cell(dryrun.cell_config(c),
+                                  dryrun.cell_shape(c), mesh, fake=False)
+                for c in args["cells"]]
+
+
 SCENARIOS = {f.__name__: f for f in (collectives, speculative,
                                      plan_distribute, moe_ep, dp_step,
-                                     sweeps)}
+                                     sweeps, sharded_step, count_cells)}
 
 
 def _main(name, rank, world, tmp):

@@ -113,6 +113,29 @@ def test_attention_plain_aligns_query_ends():
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
 
 
+# b, hq, hkv, s, d, window, cap, blocks: a sequence split into ``blocks``
+# query blocks, each a rank's (its keys whole)
+OFFSET_CASES = [(1, 4, 2, 128, 32, 0, 0.0, 4), (2, 3, 1, 96, 16, 24, 50.0, 2),
+                (1, 4, 4, 64, 32, 0, 30.0, 4)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,cap,blocks", OFFSET_CASES)
+def test_attention_plain_query_offset_matches_reference_rows(
+        b, hq, hkv, s, d, window, cap, blocks):
+    """A block of queries at ``q_offset`` (the start of a rank's block of a
+    sequence-sharded query) over the whole keys: the reference's
+    attention's rows of that block."""
+    (jq, tq), (jk, tk), (jv, tv) = qkv(5, b, hq, hkv, s, s, d)
+    want = _np(attention_ref(jq, jk, jv, window=window, logit_cap=cap))
+    n = s // blocks
+    for i in range(blocks):
+        got = _np(attention_plain(tq[:, :, i * n:(i + 1) * n], tk, tv,
+                                  window=window, logit_cap=cap,
+                                  q_offset=i * n))
+        np.testing.assert_allclose(got, want[:, :, i * n:(i + 1) * n],
+                                   atol=2e-5, rtol=2e-5, err_msg=str(i))
+
+
 # the model's strategies take [B, S, H, D]: (b, hq, hkv, s, d, window, cap)
 STRATEGY_CASES = [
     ("full", 2, 4, 2, 48, 16, 0, 0.0),
@@ -181,6 +204,34 @@ def test_decode_plain_matches_reference(b, hq, hkv, sk, d, valid, cap):
     kern = _np(j_decode_kernel(jq, jk, jv, jp, logit_cap=cap,
                                block_k=min(128, sk), interpret=True))
     np.testing.assert_allclose(got, kern, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sk,d,cap,parts", [
+    (2, 8, 2, 96, 32, 50.0, 2), (1, 4, 1, 256, 64, 0.0, 4)])
+def test_decode_plain_lse_merges_ring_parts_to_reference(b, hq, hkv, sk, d,
+                                                         cap, parts):
+    """A ring (with out-of-window slots) cut into ``parts`` slices, as a
+    slot-sharded cache's ranks hold it: each slice's output and
+    log-sum-exp merged by ``merge_parts`` equal the reference's decode
+    over the whole ring."""
+    from repro_torch.kernels.decode_attention.ops import merge_parts
+    pos = ring_positions(sk + 40, sk, sk - 30)
+    (jq, tq), (jk, tk), (jv, tv), (jp, tp) = decode_inputs(
+        6, b, hq, hkv, sk, d, pos=pos)
+    want = _np(decode_attention_ref(jq, jk, jv, jp, logit_cap=cap))
+    n = sk // parts
+    outs = [decode_attention_plain(tq, tk[:, i * n:(i + 1) * n],
+                                   tv[:, i * n:(i + 1) * n],
+                                   tp[i * n:(i + 1) * n], logit_cap=cap,
+                                   return_lse=True) for i in range(parts)]
+    got = merge_parts(torch.stack([o for o, _ in outs]),
+                      torch.stack([lse for _, lse in outs]))
+    np.testing.assert_allclose(_np(got), want, atol=2e-5, rtol=2e-5)
+    whole, lse = decode_attention_plain(tq, tk, tv, tp, logit_cap=cap,
+                                        return_lse=True)
+    np.testing.assert_array_equal(_np(whole), _np(decode_attention_plain(
+        tq, tk, tv, tp, logit_cap=cap)))
+    assert lse.shape == (b, hq) and lse.dtype == torch.float32
 
 
 def test_decode_plain_bf16():

@@ -23,7 +23,9 @@ creates a process group in the pytest process.
   other); ``devices=2`` without a group raises
   (tests/test_torch_sweeps.py).
 * Data-parallel step: on 2 and 4 ranks (data axis), one
-  ``make_train_step(..., plan=)`` step on a batch split over data gives
+  ``make_train_step`` step on a batch split over data (the dense cases
+  through ``plan=`` on a ``plan.shard_state`` state, ZeRO-3 over data;
+  the MoE case through ``batch_blocks=``, replicated weights) gives
   the gradients, metrics and parameters of the reference's single-device
   step on the whole batch (gradients 1e-5 x max |g|, metrics 1e-5
   relative; parameters as tests/test_torch_training.py holds Adam
@@ -31,7 +33,8 @@ creates a process group in the pytest process.
   one rank's whole block (the renormalisation over the survivors); and
   MoE granite with a dead block, whose batch overflows an expert's
   capacity (the dispatch and the aux loss of the whole batch).  The
-  step refuses the reference's unread options and an abstract plan.
+  step refuses the reference's unread options, an abstract plan, the
+  batch-block path for a dense config and both paths at once.
 """
 import os
 import subprocess
@@ -237,17 +240,26 @@ def test_dp_cases_drop_slots_and_blocks(monkeypatch):
 
 @pytest.mark.parametrize("options", [
     dict(grad_compression="int8"), dict(raptor_k_of_n=(2, "pod")),
-    dict(plan="abstract")])
+    dict(plan="abstract"), dict(batch_blocks="dense"),
+    dict(plan="both")])
 def test_step_refuses_what_it_would_drop(options):
     """The reference's unread step options are refused, not dropped, and
-    so is a data-parallel step over an abstract mesh."""
+    so are a data-parallel step over an abstract mesh, the batch-block
+    path for a dense config and both data-parallel paths at once."""
     from repro_torch.distributed.sharding import Plan
     from repro_torch.training.optimizer import OptConfig
     from repro_torch.training.step import StepOptions, make_train_step
     cfg = reduced_config(get_config("gemma-2b"))
-    if "plan" in options:
-        kw = dict(plan=Plan(t_mesh.make_production_mesh(), cfg))
+    plan = Plan(t_mesh.make_production_mesh(), cfg)
+    if options.get("plan") == "abstract":
+        kw = dict(plan=plan)
         match = "DeviceMesh"
+    elif "batch_blocks" in options:
+        kw = dict(batch_blocks=plan)
+        match = "pass plan= and a state from plan.shard_state"
+    elif "plan" in options:
+        kw = dict(plan=plan, batch_blocks=plan)
+        match = "not both"
     else:
         kw = dict(options=StepOptions(**options))
         match = "grad_transform=compress_grads"

@@ -47,6 +47,7 @@ def test_port_never_imports_torch_testing_internals():
     for need in ("repro_torch/core/distops.py",
                  "repro_torch/distributed/sharding.py",
                  "repro_torch/distributed/functional.py",
+                 "repro_torch/distributed/local.py",
                  "repro_torch/launch/mesh.py", "repro_torch/launch/specs.py",
                  "repro_torch/launch/dryrun.py"):
         assert need in names, need

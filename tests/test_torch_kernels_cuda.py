@@ -9,9 +9,12 @@ tests' shapes and at the engine's.  The two attention kernels sum in
 another order than their plain versions, so they are held to the
 reference kernel tests' tolerances: 2e-5 in float32, 2e-2 in bfloat16,
 at those tests' shapes, at gemma2-9b's head shapes and through the model's
-``[B, S, H, D]`` strides.  The expert matmul is held to its plain version
-within the reference's ``tol * d`` in float32 (both sum in float32) and
-within one bfloat16 rounding in bfloat16 (both round once), at the
+``[B, S, H, D]`` strides; K3 with a query offset (a rank's block of a
+sequence-sharded query) and K4's log-sum-exp (two halves of a cache
+merged by it against the whole) likewise.  The expert matmul is held to
+its plain version within the reference's ``tol * d`` in float32 (both
+sum in float32) and within one bfloat16 rounding in bfloat16 (both
+round once), at the
 reference tests' shapes, the decode's few rows per expert and the
 prefill's; the SSD scan within the reference's 2e-4, at its tests' cases,
 a sequence that ends inside a tile and zamba2's head shapes.  The plain
@@ -344,6 +347,81 @@ def test_decode_kernel_matches_plain_on_card(cuda, b, hq, hkv, c, d, valid,
     assert gqa_decode.launches == n0 + 1
     _close(got, decode_attention_plain(q, k, v, pos, scale=0.07,
                                        logit_cap=cap), dtype)
+
+
+# b, hq, hkv, sq, sk, d, window, cap, q_offset: a rank's block of a
+# sequence-sharded query (its keys whole) at gemma2-9b's heads (window,
+# cap), granite's (D=64, 3 q heads a kv head) and a ragged block; the
+# default offset's place (Sk - Sq) given explicitly
+FLASH_OFFSET_CASES = [
+    (1, 16, 8, 128, 512, 256, 128, 50.0, 384),
+    (2, 16, 8, 96, 384, 256, 0, 50.0, 96),
+    (2, 24, 8, 128, 512, 64, 0, 0.0, 256),
+    (1, 24, 8, 100, 400, 64, 70, 0.0, 300),
+    (1, 4, 2, 77, 300, 128, 0, 0.0, 0),
+    (1, 2, 1, 128, 256, 64, 0, 30.0, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,window,cap,off",
+                         FLASH_OFFSET_CASES)
+def test_flash_kernel_query_offset_on_card(cuda, b, hq, hkv, sq, sk, d,
+                                           window, cap, off, dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn((b, hq, sq, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, hkv, sk, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, hkv, sk, d), generator=g, device=cuda).to(dtype)
+    kw = dict(causal=True, window=window, logit_cap=cap, q_offset=off)
+    n0 = mha.launches
+    got = mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert mha.launches == n0 + 1
+    _close(got, attention_plain(q, k, v, **kw), dtype)
+
+
+# b, hq, hkv, c, d, valid, cap: each row's log-sum-exp beside the output,
+# at gemma2-9b's, granite's and qwen2-vl-2b's heads, a ring with holes
+DECODE_LSE_CASES = [
+    (2, 16, 8, 4648, 256, 4620, 50.0),
+    (2, 24, 8, 4136, 64, None, 0.0),
+    (2, 12, 2, 1000, 128, "ring", 0.0),
+    (1, 8, 8, 37, 32, None, 30.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,c,d,valid,cap", DECODE_LSE_CASES)
+def test_decode_kernel_log_sum_exp_on_card(cuda, b, hq, hkv, c, d, valid,
+                                           cap, dtype):
+    """The output and each row's log-sum-exp against the plain version's;
+    the two halves of the cache merged by their log-sum-exp against the
+    whole (a slot-sharded cache's ranks)."""
+    from repro_torch.kernels.decode_attention.ops import merge_parts
+    q, k, v = _decode_inputs(cuda, 21, b, hq, hkv, c, d, dtype)
+    pos = np.arange(c, dtype=np.int32)
+    if valid == "ring":
+        pos = _ring(c + 700, c, c - 300)
+    elif valid is not None:
+        pos[valid:] = -1
+    pos = torch.as_tensor(pos, device=cuda)
+    kw = dict(scale=d ** -0.5, logit_cap=cap)
+    n0 = gqa_decode.launches
+    out, lse = gqa_decode(q, k, v, pos, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert gqa_decode.launches == n0 + 1
+    want, want_lse = decode_attention_plain(q, k, v, pos, return_lse=True,
+                                            **kw)
+    _close(out, want, dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-5)
+    h = c // 2
+    parts = [gqa_decode(q, k[:, a:z], v[:, a:z], pos[a:z], return_lse=True,
+                        **kw) for a, z in ((0, h), (h, c))]
+    merged = merge_parts(torch.stack([p[0] for p in parts]),
+                         torch.stack([p[1] for p in parts]))
+    _close(merged, want, dtype)
 
 
 def _decode_inputs(dev, seed, b, hq, hkv, c, d, dtype):

@@ -15,11 +15,28 @@ reference on the CPU.
 * ``launch/specs.py``: every input stand-in of every (arch x shape) cell
   is a ``meta`` tensor of the reference's ``ShapeDtypeStruct``'s shape and
   dtype.
-* The dry run: every cell of both meshes is ok, and its per-rank
-  parameter and moment bytes equal the sums taken from the reference's
-  specs over the reference's full-size ``eval_shape`` trees.
+* The dry run: every cell of both meshes is planned (``--plan-only``:
+  the counted steps of all 68 cells take minutes; PERF.md records that
+  run), and its per-rank parameter and moment bytes equal the sums taken
+  from the reference's specs over the reference's full-size
+  ``eval_shape`` trees.  The counting: on the reduced gemma-2b, granite
+  and zamba2 train, prefill and decode cells (B=8, S=64) over a fake 2x2
+  group in a child interpreter, ``arg_bytes`` equals the reference's
+  ``analyze`` on a forced 4-device 2x2 host mesh (a ``python -c``
+  subprocess; the decode cache's ``index`` is a host int in the port, a
+  4-byte int32 there), and the FLOPs per device, the collectives' count
+  and bytes equal what the same counters count in the real 4-rank gloo
+  run of the same cells, and so does the tracked peak (within 1e-4: the
+  fake run frees one 0-dim int32 of MoE granite's step an op sooner);
+  the reference's FLOPs, collective bytes and peak are printed beside
+  the port's, not compared (GSPMD partitions the step its own way).
 """
 import json
+import os
+import subprocess
+import sys
+import textwrap
+import threading
 
 import numpy as np
 import pytest
@@ -28,7 +45,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 
-from _torch_ranks import run_ranks  # noqa: E402
+from _torch_ranks import ROOT, run_ranks  # noqa: E402
 from repro.configs import ARCH_NAMES as J_ARCHS  # noqa: E402
 from repro.configs import applicable_shapes as j_shapes  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
@@ -220,15 +237,106 @@ def test_dry_run_bytes_equal_the_reference_specs(name):
         assert rec["opt_bytes_per_device"] == _ref_bytes(
             jplan, state["opt"]["mu"]) + _ref_bytes(jplan,
                                                     state["opt"]["nu"])
-        assert "not reckoned" in rec["flops_per_device"]
+        assert not any("not reckoned" in str(v) for v in rec.values())
 
 
 def test_dry_run_cli_covers_every_cell(tmp_path, capsys):
     out = tmp_path / "cells.json"
-    assert dryrun.main(["--both-meshes", "--json", str(out)]) == 0
+    assert dryrun.main(["--both-meshes", "--plan-only", "--json",
+                        str(out)]) == 0
     cells = json.loads(out.read_text())
     want = sum(2 * len(j_shapes(j_get_config(n))) for n in J_ARCHS)
     assert len(cells) == want and all(c["ok"] for c in cells)
     assert f"done: {want}/{want} cells ok" in capsys.readouterr().out
     one = dryrun.run_cell("gemma-2b", "decode_32k", False)
     assert one["cache_bytes_per_device"] > 0
+
+
+COUNT_ARCHS = ("gemma-2b", "granite-moe-3b-a800m", "zamba2-1.2b")
+COUNT_CELLS = [{"arch": a, "shape": ["t", 64, 8, kind], "reduced": True}
+               for a in COUNT_ARCHS for kind in ("train", "prefill",
+                                                 "decode")]
+JAX_ANALYZE = textwrap.dedent("""
+    import os, json, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    from repro.configs import get_config, reduced_config
+    from repro.configs.base import ShapeConfig
+    from repro.launch.dryrun import analyze, lower_cell
+    from repro.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data=2, model=2)
+    out = []
+    for cell in json.loads(sys.argv[1]):
+        cfg = reduced_config(get_config(cell["arch"]))
+        name, seq, batch, kind = cell["shape"]
+        with mesh:
+            out.append(analyze(lower_cell(cfg, ShapeConfig(
+                name, seq, batch, kind), mesh)))
+    print("ANALYZE " + json.dumps(out))
+""")
+
+
+def _reference_analyze(cells):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run([sys.executable, "-c", JAX_ANALYZE,
+                           json.dumps(cells)], env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("ANALYZE ")][-1]
+    return json.loads(line[len("ANALYZE "):])
+
+
+def test_dry_run_counts_equal_a_gloo_run_and_the_reference_args(tmp_path):
+    got = {}
+
+    def in_thread(key, fn):
+        def run():
+            try:
+                got[key] = fn()
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                got[key] = e
+        t = threading.Thread(target=run)
+        t.start()
+        return t
+    threads = [
+        in_thread("ref", lambda: _reference_analyze(COUNT_CELLS)),
+        in_thread("fake", lambda: dryrun.count_in_child(
+            (2, 2), ("data", "model"), COUNT_CELLS, timeout=600))]
+    real = run_ranks("count_cells", 4, tmp_path,
+                     {"shape": (2, 2), "cells": COUNT_CELLS}, timeout=600)
+    for t in threads:
+        t.join()
+    for key in ("ref", "fake"):
+        if isinstance(got[key], BaseException):
+            raise got[key]
+    for cell, fake, ref, *ranks in zip(COUNT_CELLS, got["fake"], got["ref"],
+                                        *real):
+        tag = f"{cell['arch']} {cell['shape'][3]}"
+        assert fake["ok"], (tag, fake.get("error"))
+        print(f"{tag}: port flops/dev {fake['flops_per_device']:.4g} "
+              f"collectives {fake['n_collectives']} "
+              f"{fake['collective_bytes']} | reference flops/dev "
+              f"{ref['flops_per_device']:.4g} {ref['collective_bytes']} "
+              f"n {ref['n_collectives']}")
+        # the decode cache's index: 4 bytes of int32 in the reference
+        index = 4 if cell["shape"][3] == "decode" else 0
+        assert fake["arg_bytes"] + index == ref["arg_bytes"], tag
+        real0 = ranks[0]
+        assert real0["arg_bytes"] == fake["arg_bytes"], tag
+        assert real0["flops_per_device"] == fake["flops_per_device"], tag
+        assert real0["n_collectives"] == fake["n_collectives"], tag
+        assert real0["collective_bytes"] == fake["collective_bytes"], tag
+        assert fake["n_collectives"] > 0 and fake["flops_per_device"] > 0
+        # the tracked peak, unclamped (count_step raises where it falls
+        # below the inputs and outputs), is the real run's: within 1e-4,
+        # since on fake tensors MoE granite's step frees a 0-dim int32
+        # (4 B on one rank) one op sooner than on real ones
+        assert fake["peak_bytes_per_device"] == pytest.approx(
+            real0["peak_bytes_per_device"], rel=1e-4), tag
+        assert fake["temp_bytes"] == fake["peak_bytes_per_device"] - (
+            fake["arg_bytes"] + fake["out_bytes"]) and fake["temp_bytes"] > 0
+        print(f"{tag}: peak {fake['peak_bytes_per_device']} (real "
+              f"{real0['peak_bytes_per_device']}, reference "
+              f"{ref['peak_bytes_per_device']})")
