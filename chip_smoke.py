@@ -32,6 +32,8 @@ DTensor placed by the sharding Plan, the kernels on each rank's shards.
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build all six kernels (one nvcc per source, in parallel), timed, with
    ptxas' register counts, and any spills or serialised wgmmas by kernel;
+   fails if a bf16 ``flash_attention`` kernel spills or has its wgmmas
+   serialised (C75xx), and prints each one's registers;
 3. ``queue_booking`` against its plain PyTorch version, bitwise, at the
    engine's stock shape, the reference tests' shapes and the edges of its
    lane plan, timed, beside its chain model read from the SASS of the
@@ -51,8 +53,9 @@ DTensor placed by the sharding Plan, the kernels on each rank's shards.
    (bf16, B=2, 16 q / 8 kv heads, S=4608, D=256, cap 50; window 4096 and
    0) within the bf16 bar of ``TOL``, and on an f32 reference case within
    2e-5, timed beside ``F.scaled_dot_product_attention`` at cap 0; and at
-   granite-moe-3b-a800m's prefill shape (24 / 8 heads of 64, S=4096, no
-   cap) beside SDPA;
+   granite-moe-3b-a800m's, qwen2-vl-2b's and seamless-m4t-medium's cross
+   prefill shapes and gemma-2b's training forward (B=2, 8 / 1 heads of
+   256, S=2,048, causal, no cap), each beside SDPA;
 8. ``decode_attention`` against its plain version at the decode's shapes
    (bf16, B=2, C=4648 and 4096, the model's ring positions and random
    holes; granite-moe-3b-a800m's, zamba2-1.2b's, qwen2-vl-2b's and
@@ -331,7 +334,6 @@ WIRING_TRAIN_BATCH = 1
 DP_MOE_LAYERS = 8
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
-BF16_OPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
 # kernel against plain: |got - want| <= atol + rtol |want| at every element
 # and never above ``cap``, the reference kernel tests' bar.  The plain
 # versions compute in float32 and round once, so a bf16 element may be off
@@ -407,12 +409,6 @@ def close(got, want, name: str, bar=None) -> tuple:
             f"{err} (bar {cap}), {share:.3f} of atol {atol} + rtol {rtol} "
             f"x |plain|")
     return err, share
-
-
-def causal_pairs(s: int, window: int) -> int:
-    """(query, key) pairs a causal prefill of ``s`` tokens attends to."""
-    w = window or s
-    return sum(min(i + 1, w) for i in range(s))
 
 
 def fault_engine_phase(dev, card, jobs=FAULT_JOBS, trials=TRIALS,
@@ -1019,31 +1015,22 @@ def lm_path(dev, card, phase, cfg_, per_prefill, per_step, *,
 def flash_row(dev, name, hq, hkv, sq, sk, d, causal, scale) -> dict:
     """``flash_attention`` at one of a model's shapes (B = LM_BATCH, bf16,
     no cap or window): held to its plain version within the bf16 bar, its
-    device time (CUDA graph replay, inputs cold) beside SDPA's, the plain
-    version's pace and the bound (the larger of the operations at the
-    bf16 tensor-core rate and the bytes: q, k, v read, the output
-    written once)."""
+    device time (CUDA graph replay, inputs cold: distinct inputs in the
+    model's layout, ``bench_kernels.flash_sets``) beside SDPA's, the plain
+    version's pace and the bound (``bench_kernels.flash_bound``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import attention_plain, mha
-    from repro_torch.launch.bench_kernels import graph_ms, loop_ms
-    gen = torch.Generator(device=dev).manual_seed(17)
-    qx = torch.randn((LM_BATCH, sq, hq, d), generator=gen, device=dev)
-    kv = torch.randn((LM_BATCH, sk, 2 * hkv, d), generator=gen, device=dev)
-    # [B, H, S, D] views of the model's [B, S, H, D] layout
-    q = qx.bfloat16().transpose(1, 2)
-    k, v = (x.transpose(1, 2) for x in kv.bfloat16().split(hkv, dim=2))
-    del qx, kv
+    from repro_torch.launch.bench_kernels import (flash_bound, flash_sets,
+                                                  graph_ms, loop_ms)
+    sets = flash_sets(hq, hkv, d, sq, sk, 17, dev, LM_BATCH)
+    q, k, v = sets[0]
 
     def kern(q_, k_, v_):
         return mha(q_, k_, v_, causal=causal, scale=scale)
     err, share = close(kern(q, k, v), attention_plain(
         q, k, v, causal=causal, scale=scale), f"flash_attention {name}")
-    pairs = LM_BATCH * hq * (causal_pairs(sq, 0) if causal else sq * sk)
-    ops_ms = 1e3 * 4 * d * pairs / BF16_OPS_PER_S
-    bytes_ms = 1e3 * 2 * LM_BATCH * d * (2 * sq * hq + 2 * sk * hkv) \
-        / HBM_BYTES_PER_S
-    sets = cold(q, k, v)
+    bound, bound_by = flash_bound(LM_BATCH, hq, hkv, d, sq, sk, causal)
     row = {"shape": f"{name}: B={LM_BATCH}, {hq}/{hkv} heads, Sq={sq}, "
                     f"Sk={sk}, D={d}, {'causal' if causal else 'non-causal'}"
                     f", no cap or window",
@@ -1051,8 +1038,7 @@ def flash_row(dev, name, hq, hkv, sq, sk, d, causal, scale) -> dict:
            "ms": graph_ms(kern, sets, 10),
            "plain_ms": loop_ms(lambda: attention_plain(
                q, k, v, causal=causal, scale=scale), [()], 2),
-           "bound_ms": max(ops_ms, bytes_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+           "bound_ms": bound, "bound_by": bound_by}
     sdpa_sets = [tuple(x.contiguous() for x in s) for s in sets]
     del sets
     row["library_ms"] = graph_ms(
@@ -1198,7 +1184,9 @@ def kernel_grads(dev, card) -> dict:
     from repro_torch.kernels.moe_gmm.ops import (expert_matmul_plain, gmm,
                                                  gmm_vjp)
     from repro_torch.kernels.ssd_scan.ops import ssd, ssd_plain, ssd_vjp
-    from repro_torch.launch.bench_kernels import graph_ms, loop_ms
+    from repro_torch.launch.bench_kernels import (BF16_OPS_PER_S, flash_bound,
+                                                  flash_ops_ms, graph_ms,
+                                                  loop_ms)
     from repro_torch.models import transformer as tfm
     gen = torch.Generator(device=dev).manual_seed(29)
     bf16 = torch.bfloat16
@@ -1263,13 +1251,9 @@ def kernel_grads(dev, card) -> dict:
                     enable_gqa=True)
                 torch.autograd.grad(o, (qc, kc, vc), dc)
             row["library_train_ms"] = loop_ms(sdpa_train, [()], 5)
-            pairs = TRAIN_BATCH * hq * causal_pairs(sq, 0)
-            nbytes = 2 * TRAIN_BATCH * d * (2 * sq * hq + 2 * sk * hkv)
-            ops_ms = 1e3 * 4 * d * pairs / BF16_OPS_PER_S
-            bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-            row["bound_ms"] = max(ops_ms, bytes_ms)
-            row["bound_by"] = "operations" if ops_ms >= bytes_ms \
-                else "bytes"
+            row["bound_ms"], row["bound_by"] = flash_bound(
+                TRAIN_BATCH, hq, hkv, d, sq, sk, True)
+            ops_ms = flash_ops_ms(TRAIN_BATCH, hq, d, sq, sk, True)
             # the backward: five products (the scores again, dV, dP, dQ,
             # dK); q, k, v and dO read, dQ, dK and dV written
             row["backward_bound_ms"] = max(
@@ -1470,6 +1454,7 @@ def trainer_run(dev, card) -> dict:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.synthetic import make_batch
     from repro_torch.launch import train
+    from repro_torch.launch.bench_kernels import BF16_OPS_PER_S
     from repro_torch.serving.engine import (ServeConfig, ServingEngine,
                                             demo_requests)
     from repro_torch.training.optimizer import OptConfig
@@ -2458,7 +2443,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention_plain, gqa_decode)
-    from repro_torch.kernels.flash_attention.ops import attention_plain, mha
+    from repro_torch.kernels.flash_attention.ops import (
+        HEAD_DIMS, attention_plain, mha)
     from repro_torch.kernels import sass
     from repro_torch.kernels.maxplus_scan.ops import (
         maxplus_entries, maxplus_entries_plain)
@@ -2467,9 +2453,10 @@ def main() -> int:
     from repro_torch.kernels.queue_booking.ops import (
         book_stream, book_stream_plain, booking_plan, events_per_pass)
     from repro_torch.launch.bench_kernels import (
-        BATCH, DECODE_SHAPES, bench_decode, bench_ssd, booking_bound_ms,
-        booking_stream, decode_sets, graph_ms, launch_floor_ms, loop_ms,
-        operator_tape, scan_bound_ms)
+        BATCH, BF16_OPS_PER_S, DECODE_SHAPES, bench_decode, bench_ssd,
+        booking_bound_ms, booking_stream, decode_sets, flash_bound,
+        flash_ptxas, graph_ms, launch_floor_ms, loop_ms, operator_tape,
+        scan_bound_ms)
     from repro_torch.models import layers, moe
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.engine import (SchedulerService, ServeConfig,
@@ -2492,22 +2479,30 @@ def main() -> int:
     paths = _build.build_all()
     build_s = time.perf_counter() - t0
     for stem in sorted(paths):
-        log = _build.build_log.get(stem, "").splitlines()
-        regs = [ln.strip() for ln in log if "registers" in ln]
+        log = _build.build_log.get(stem, "")
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         say(f"phase 2 build {stem}: {paths[stem].name} "
             f"({_build.build_seconds.get(stem, 0.0):.1f} s) "
             f"{' | '.join(regs)}")
         # ptxas' spills and serialised wgmmas, by kernel
-        kernel = None
-        for ln in log:
-            if "Compiling entry function" in ln:
-                kernel = ln.split("'")[1]
-            elif ("spill" in ln and " 0 bytes spill stores" not in ln) \
-                    or "(C75" in ln:
-                say(f"phase 2 ptxas {stem}: {kernel}: {ln.strip()}")
+        for kernel, ln in _build.ptxas_faults(log):
+            say(f"phase 2 ptxas {stem}: {kernel}: {ln}")
     say(f"phase 2 build: {len(paths)} kernels in {build_s:.1f} s wall "
         f"[{card}]")
     results["build_s"] = build_s
+    # flash_attention's bf16 kernels must build clean: no spill, no wgmma
+    # serialised (every D, fused or capped)
+    k3_ptxas = flash_ptxas(_build.build_log.get("flash_attention", ""))
+    for name, k in k3_ptxas.items():
+        say(f"phase 2 {name}: {k['registers']} registers, "
+            f"{k['spill_stores']} / {k['spill_loads']} bytes spill stores / "
+            f"loads, {len(k['faults'])} fault line(s)")
+    results["flash_attention_ptxas"] = k3_ptxas
+    bad = {n: k["faults"] for n, k in k3_ptxas.items() if k["faults"]}
+    if bad or len(k3_ptxas) != 2 * len(HEAD_DIMS):
+        raise AssertionError(f"flash_attention's bf16 kernels did not build "
+                             f"clean: {len(k3_ptxas)} of "
+                             f"{2 * len(HEAD_DIMS)} reported, faults {bad}")
 
     # ---- 3. queue_booking vs plain -------------------------------------
     W = WORKERS
@@ -2741,10 +2736,8 @@ def main() -> int:
                                              logit_cap=cap, scale=scale),
             cold(q, k, v), 5)
         k3["plain_ms"][window] = loop_ms(plain, [()], 2)
-        pairs = LM_BATCH * hq * causal_pairs(PROMPT, window)
-        k3["bound_ms"][window] = 1e3 * max(
-            4 * hd * pairs / BF16_OPS_PER_S,
-            2 * LM_BATCH * PROMPT * (2 * hq + 2 * hkv) * hd / HBM_BYTES_PER_S)
+        k3["bound_ms"][window] = flash_bound(LM_BATCH, hq, hkv, hd, PROMPT,
+                                             PROMPT, True, window)[0]
     b, h32, g32, s32, d32 = 2, 4, 2, 256, 64   # test_kernels_flash CASES[1]
     q32 = torch.randn((b, h32, s32, d32), generator=gen, device=dev)
     k32 = torch.randn((b, g32, s32, d32), generator=gen, device=dev)
@@ -2765,14 +2758,18 @@ def main() -> int:
     # the served paths' other prefill shapes (no cap, no window), each
     # beside SDPA: granite-moe-3b-a800m's (D=64, where the scalar work per
     # score weighs most), qwen2-vl-2b's (a GQA group of 6) and
-    # seamless-m4t-medium's cross attention (non-causal, Sq != Sk)
+    # seamless-m4t-medium's cross attention (non-causal, Sq != Sk); and
+    # gemma-2b's training forward (a group of 8 at D=256)
     k3["rows"] = []
-    for name, sq, causal in ((MOE_ARCH, PROMPT2, True),
-                             (VLM_ARCH, PROMPT2, True),
-                             (ENCDEC_ARCH, ENCDEC_WIRING_PROMPT, False)):
+    for label, name, sq, sk, causal in (
+            (MOE_ARCH, MOE_ARCH, PROMPT2, PROMPT2, True),
+            (VLM_ARCH, VLM_ARCH, PROMPT2, PROMPT2, True),
+            (f"{ENCDEC_ARCH} cross", ENCDEC_ARCH, ENCDEC_WIRING_PROMPT,
+             PROMPT2, False),
+            (f"{TRAIN_ARCH} training", TRAIN_ARCH, TRAIN_SEQ, TRAIN_SEQ,
+             True)):
         c_ = get_config(name)
-        row = flash_row(dev, name if causal else f"{name} cross",
-                        c_.num_heads, c_.num_kv_heads, sq, PROMPT2,
+        row = flash_row(dev, label, c_.num_heads, c_.num_kv_heads, sq, sk,
                         c_.resolved_head_dim, causal, tfm._attn_scale(c_))
         k3["err"] = max(k3["err"], row["max_abs_err"])
         k3["share"] = max(k3["share"], row["bar_share"])

@@ -34,31 +34,35 @@
 // bf16, FlashAttention-3 style, for Hopper:
 // - A block owns 128 query rows of one head (grid: heads fastest, then
 //   batch, then q-tiles from the last, so every head's heaviest causal
-//   tile is handed out first): two consumer warpgroups of 64 rows and a
-//   producer warpgroup whose one thread brings q once and the k and v
-//   tiles by TMA into rings of 4 stages, completion
-//   signalled on mbarriers (a k and a v barrier per stage, each released
-//   by the consumers when its product has run).  The tensor maps are 4-D
-//   (D, S, H, B) over the caller's strides, so the model's [B, S, H, D]
-//   tensors are read in place; rows past Sq or Sk arrive as zeros.
-//   setmaxnreg hands the producer's registers to the consumers (40 / 232).
+//   tile is handed out first): two warpgroups of 64 rows, 256 threads.
+//   Thread 0 brings q and the first tiles of k and v by TMA into two rings
+//   of 4 stages of 64 keys (D = 256: 2 stages, a tile 32 KiB, which with
+//   q's 64 KiB fills the 227 KiB a block may have), completion signalled
+//   on mbarriers; from then on the last of the 8 warps to be done with a
+//   stage (a count in shared memory) brings the ring's next tile into it.
+//   There is no producer warpgroup: built with one (384 threads,
+//   setmaxnreg 240 for the consumers, 24 for the producer), ptxas reported
+//   168 registers, and at D = 256 the accumulator (128 registers a
+//   thread), s and p's two terms spilled and serialised the wgmmas; why
+//   ptxas did not use the 240 was not established.  At 256 threads a
+//   thread may hold 255.  The tensor maps are 4-D (D, S, H, B) over the caller's strides,
+//   so the model's [B, S, H, D] tensors are read in place; rows past Sq
+//   or Sk arrive as zeros.
 // - s = q k^T is a wgmma with both operands in shared memory (K-major,
-//   128-byte swizzle; 64-byte for D = 32 and 96).
-//   p v is a wgmma with A in registers: the score accumulator, once turned
-//   into probabilities, is already the A fragment, as two bf16 terms hi +
-//   lo (below) so that p keeps ~16 bits as the reference's float32 p @ v does (one
-//   bf16 term moved gemma2-9b's logits past the wiring bar); v is the
-//   MN-major B operand through the transpose bit, so nothing is copied.
-// - Overlap: the two warpgroups run their tiles independently, so one's
-//   softmax runs while the tensor cores work through the other's products
-//   (making them take turns issuing, FlashAttention-3's ping-pong, was
-//   slower at D = 256 and no faster at D = 64 here).  For D <= 128 a
-//   warpgroup also issues p_{j-1} v_{j-1} at the end of tile j-1 and
-//   q k_j^T at the start of tile j without waiting in between.  At D = 256 it waits for p v first, and a
-//   key tile is 32 keys (64 below): the accumulator (128 registers a
-//   thread), s and the two p terms must fit the consumers' 232 registers
-//   as contiguous ranges, and with more ptxas spilled and serialised the
-//   wgmmas.
+//   128-byte swizzle; 64-byte for D = 32 and 96); its first k16 step only
+//   writes s, so s holds no registers between its last read and the next
+//   tile.  p v is a wgmma with A in registers: the score accumulator, once
+//   turned into probabilities, is already the A fragment, as two bf16
+//   terms hi + lo (below) so that p keeps ~16 bits as the reference's
+//   float32 p @ v does (one bf16 term moved gemma2-9b's logits past the
+//   wiring bar); v is the MN-major B operand through the transpose bit, so
+//   nothing is copied.  At D = 256 p v is split by N into two m64n128
+//   products, two accumulator ranges of 64 registers.
+// - Overlap: a warpgroup issues q k_t^T and p_{t-1} v_{t-1} together,
+//   waits for the scores alone and runs tile t's softmax while
+//   p_{t-1} v_{t-1} runs (FlashAttention-3's intra-warpgroup overlap);
+//   the two warpgroups run their tiles independently, so one's softmax
+//   also runs beside the other's products.
 // - Scalar work per score, each choice with its error against the float32
 //   reference (all far inside the bf16 bar of 1e-3 + 1.6e-2 |plain|).
 //   What bounds the softmax is the MUFU pipe (ex2, rcp) and the bf16
@@ -282,42 +286,47 @@ flash_attention_f32_kernel(Params p) {
 }
 
 
-// ---- bfloat16 on Hopper: wgmma, TMA, warp specialisation ---------------
+// ---- bfloat16 on Hopper: wgmma, TMA ------------------------------------
 
 using bf16 = __nv_bfloat16;
 using namespace hopper;
 
-constexpr int W_THREADS = 384;   // 2 consumer warpgroups + 1 producer
-constexpr int W_BQ = 128;        // query rows per block, 64 per consumer
+constexpr int W_THREADS = 256;   // 2 warpgroups, no producer
+constexpr int W_BQ = 128;        // query rows per block, 64 a warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Tile {
+  static constexpr bool WIDE = D == 256;
   static constexpr int SW = D % 64 == 0 ? 128 : 64;   // swizzle = row bytes
   static constexpr int LAYOUT = SW == 128 ? 1 : 2;    // descriptor layout
   static constexpr int EPB = SW / 2;                  // elements per box row
   static constexpr int NBOX = D / EPB;                // boxes along D
-  static constexpr int BKN = D == 256 ? 32 : 64;      // keys per tile
-  // p_{t-1} v_{t-1} still running while q k_t^T is issued: needs the
-  // registers of both products at once, which D = 256 does not have
-  static constexpr bool OVERLAP = D < 256;
-  static constexpr int STAGES = 4;
-  static constexpr int CHN = D % 64 == 0 ? D : 32;    // p v's N per wgmma
+  static constexpr int BKN = 64;                      // keys per tile
+  // k and v tiles in flight: at D = 256 a 64-key tile of k or v is 32 KiB,
+  // and only 2 stages fit beside q in a block's 227 KiB
+  static constexpr int STAGES = WIDE ? 2 : 4;
+  // p v's N per wgmma: its accumulator is CHN / 2 registers that wgmma
+  // needs as one range (D = 256: two products of 128)
+  static constexpr int CHN = D % 64 ? 32 : D < 128 ? D : 128;
   static constexpr int NCH = D / CHN;                 // p v products by N
   static constexpr int Q_BOX = W_BQ * SW;             // bytes of a q box
   static constexpr int KV_BOX = BKN * SW;
   static constexpr int Q_BYTES = NBOX * Q_BOX;
   static constexpr int KV_BYTES = NBOX * KV_BOX;
+  // q, the k and v rings, their barriers and release counts
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES
-                              + 8 * (1 + 4 * STAGES);
+                              + 8 * (1 + 2 * STAGES) + 4 * 2 * STAGES;
+  static_assert(CHN * NCH == D && CHN % EPB == 0, "p v's N splits D");
+  static_assert(SMEM <= 232448, "a block has 227 KiB of shared memory");
 };
 
-template <int N, int TRANS_B>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  static_assert(N == 32 || N == 64, "key tiles are 32 or 64 keys");
-  if constexpr (N == 32) wgmma_ss_n32<TRANS_B>(d, a, b, accumulate);
-  else wgmma_ss_n64<TRANS_B>(d, a, b, accumulate);
+// s (+)= q k^T over one k16 step; FIRST: s = q k^T, s only written
+template <bool FIRST>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  if constexpr (FIRST) wgmma_ss_n64_first<0>(d, a, b);
+  else wgmma_ss_n64<0>(d, a, b, 1);
 }
 
 template <int N>
@@ -325,8 +334,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   if constexpr (N == 32) wgmma_rs_n32<1>(d, a, b, 1);
   else if constexpr (N == 64) wgmma_rs_n64<1>(d, a, b, 1);
-  else if constexpr (N == 128) wgmma_rs_n128<1>(d, a, b, 1);
-  else wgmma_rs_n256<1>(d, a, b, 1);
+  else wgmma_rs_n128<1>(d, a, b, 1);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -383,13 +391,163 @@ __device__ __forceinline__ void apply_masks(float (&sc)[NS], const Params& p,
   }
 }
 
+// s = q k^T over the head dimension, both in shared memory (dq, dk: the
+// tiles' first k16 step), issued and committed as one group
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[Tile<D>::BKN / 2],
+                                         uint64_t dq, uint64_t dk) {
+  using T = Tile<D>;
+  constexpr int STEPS = T::EPB / 16;   // k16 steps per box row
+  wgmma_fence();
+  wgmma_ss<true>(sc, dq, dk);
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) {
+    // the next k16 step: 32 bytes on along the row, or the next box; a
+    // descriptor's low bits are the start address / 16, and each goes
+    // through a register move the compiler cannot see through, so that
+    // one descriptor of each operand is live at a time
+    const bool wrap = kk % STEPS == 0;
+    dq = opaque(dq + ((wrap ? T::Q_BOX - (STEPS - 1) * 32 : 32) >> 4));
+    dk = opaque(dk + ((wrap ? T::KV_BOX - (STEPS - 1) * 32 : 32) >> 4));
+    wgmma_ss<false>(sc, dq, dk);
+  }
+  wgmma_commit();
+}
+
+// acc += p v as two bf16 products, hi and lo (p in registers, the A
+// fragments; v MN-major in shared memory at vd), issued and committed as
+// one group
+template <int D>
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[Tile<D>::NCH][Tile<D>::CHN / 2],
+    const uint32_t (&ph)[Tile<D>::BKN / 16][4],
+    const uint32_t (&pl)[Tile<D>::BKN / 16][4], uint64_t vd) {
+  using T = Tile<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < T::BKN / 16; ++kk) {
+#pragma unroll
+    for (int c = 0; c < T::NCH; ++c) {
+      const uint64_t d = vd + (((c * T::CHN / T::EPB) * T::KV_BOX
+                                + kk * 16 * T::SW) >> 4);
+      wgmma_rs<T::CHN>(acc[c], ph[kk], d);
+      wgmma_rs<T::CHN>(acc[c], pl[kk], d);
+    }
+  }
+  wgmma_commit();
+}
+
+template <int NCH, int N>
+__device__ __forceinline__ void fence_acc(float (&acc)[NCH][N]) {
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) fence_regs(acc[c]);
+}
+
+// The online softmax of one tile's scores, in place (sc becomes p): the
+// masks where ``edge`` (kcol: the key of the lane's first column, pos0:
+// the key position of its first row), the new row max, p, and l; corr is
+// the factor on acc for the max's move.
+template <bool FUSED, int NS>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[NS], float (&m)[2], float (&moff)[2], float (&l)[2],
+    float (&corr)[2], bool edge, const Params& p, int kcol, int pos0,
+    float sl2, float c1, float c3) {
+  if constexpr (FUSED) {
+    // no cap, scale > 0: the row max of the raw scores, then
+    // p = 2^(s (scale log2 e) - m (scale log2 e)), one FMA and one ex2 a
+    // score.  A row with no visible key yet keeps offset 0, so its masked
+    // scores give p = 0 (the reference's p = 1 there is wiped by the next
+    // correction, exp(NEG_INF - m) = 0, all the same); every row has a
+    // visible key in some tile.
+    if (edge) apply_masks(sc, p, kcol, pos0);
+    float mt[2];
+    row_max<NS>(sc, mt);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], mt[r]);
+      const float o2 = mn == NEG_INF ? 0.0f : mn * sl2;
+      // acc and l are still 0 while no key was visible
+      corr[r] = m[r] == NEG_INF ? 0.0f : ex2(moff[r] - o2);
+      m[r] = mn;
+      moff[r] = o2;
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      sc[i] = ex2(fmaf(sc[i], sl2, -moff[(i >> 1) & 1]));
+  } else {
+    // scores in log2 units, x = tanh(s scale / cap) cap log2 e
+    if (p.cap != 0.0f) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        sc[i] = c1 - 2.0f * c1 * rcp(1.0f + ex2(sc[i] * c3));
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) sc[i] *= sl2;
+    }
+    if (edge) apply_masks(sc, p, kcol, pos0);
+    float mt[2];
+    row_max<NS>(sc, mt);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], mt[r]);
+      corr[r] = ex2(moff[r] - mn);
+      m[r] = mn;
+      moff[r] = mn;
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = ex2(sc[i] - moff[(i >> 1) & 1]);
+  }
+  float ls[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) ls[(i >> 1) & 1] += sc[i];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ls[r];
+}
+
+// acc *= corr by row; a max that moved in no row of the warp leaves acc
+// as it is (x 1.0 is exact, so skipping it changes no bit)
+template <int NCH, int N>
+__device__ __forceinline__ void rescale(float (&acc)[NCH][N],
+                                        const float (&corr)[2]) {
+  if (!__all_sync(0xffffffffu, corr[0] == 1.0f && corr[1] == 1.0f)) {
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc[c][i] *= corr[(i >> 1) & 1];
+  }
+}
+
+// p's A fragments for p v: sc's pairs as bf16 hi and lo terms
+template <int NP>
+__device__ __forceinline__ void split_p(const float (&sc)[NP * 8],
+                                        uint32_t (&ph)[NP][4],
+                                        uint32_t (&pl)[NP][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NP; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      split_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1], ph[kk][j],
+                 pl[kk][j]);
+}
+
+// one of the 8 warps is done with a stage of a ring: the last of the 8
+// (``count`` counts every warp's releases) refills it
+template <class Refill>
+__device__ __forceinline__ void release(unsigned* count, Refill refill) {
+  __threadfence_block();
+  if ((atomicAdd(count, 1u) & 7u) == 7u) {
+    __threadfence_block();
+    refill();
+  }
+}
+
 // FUSED: no cap and scale > 0 (the launcher's choice), one softmax path
-// compiled per kernel, which keeps the consumers' registers down
+// compiled per kernel, which keeps the registers down
 template <int D, bool FUSED>
 __global__ void __launch_bounds__(W_THREADS, 1)
-flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                             const __grid_constant__ CUtensorMap tk,
-                             const __grid_constant__ CUtensorMap tv,
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
                              Params p) {
   using T = Tile<D>;
   constexpr int BKN = T::BKN, S = T::STAGES, SW = T::SW;
@@ -400,9 +558,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   unsigned char* Vs = Ks + S * T::KV_BYTES;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + S * T::KV_BYTES);
   uint64_t* k_full = q_full + 1;
-  uint64_t* k_empty = k_full + S;
-  uint64_t* v_full = k_empty + S;
-  uint64_t* v_empty = v_full + S;
+  uint64_t* v_full = k_full + S;
+  // each stage's releases so far, k's then v's
+  unsigned* k_count = reinterpret_cast<unsigned*>(v_full + S);
+  unsigned* v_count = k_count + S;
 
   // grid (Hq, B, q-tiles), heads fastest: every head's heaviest (last)
   // causal q-tile is handed out first, and the light ones fill the tail
@@ -422,243 +581,161 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   kbeg = (kbeg / BKN) * BKN;
   const int ntiles = kend > kbeg ? (kend - kbeg + BKN - 1) / BKN : 0;
 
+  // tile t of k or v into its stage
+  const CUtensorMap* mk = &map_k;
+  const CUtensorMap* mv = &map_v;
+  auto load_k = [&](int t) {
+    const int s = t % S;
+    mbar_expect_tx(k_full + s, T::KV_BYTES);
+    for (int j = 0; j < T::NBOX; ++j)
+      tma_load_4d(Ks + s * T::KV_BYTES + j * T::KV_BOX, mk, k_full + s,
+                  j * T::EPB, kbeg + t * BKN, g, b);
+  };
+  auto load_v = [&](int t) {
+    const int s = t % S;
+    mbar_expect_tx(v_full + s, T::KV_BYTES);
+    for (int j = 0; j < T::NBOX; ++j)
+      tma_load_4d(Vs + s * T::KV_BYTES + j * T::KV_BOX, mv, v_full + s,
+                  j * T::EPB, kbeg + t * BKN, g, b);
+  };
+
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int i = 0; i < S; ++i) {
       mbar_init(k_full + i, 1);
       mbar_init(v_full + i, 1);
-      mbar_init(k_empty + i, 8);   // lane 0 of each consumer warp
-      mbar_init(v_empty + i, 8);
+      k_count[i] = 0;
+      v_count[i] = 0;
     }
     mbar_fence_init();
   }
   __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {
-    // ---- producer: q once, then k_j and v_j into the rings ----
-    regs_dec<40>();
-    if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, T::Q_BYTES);
-      for (int j = 0; j < T::NBOX; ++j)
-        tma_load_4d(Qs + j * T::Q_BOX, &tq, q_full, j * T::EPB, q0, h, b);
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % S;
-        const int r = t / S;
-        const int k0 = kbeg + t * BKN;
-        if (r > 0) mbar_wait(k_empty + s, (r - 1) & 1);
-        mbar_expect_tx(k_full + s, T::KV_BYTES);
-        for (int j = 0; j < T::NBOX; ++j)
-          tma_load_4d(Ks + s * T::KV_BYTES + j * T::KV_BOX, &tk, k_full + s,
-                      j * T::EPB, k0, g, b);
-        if (r > 0) mbar_wait(v_empty + s, (r - 1) & 1);
-        mbar_expect_tx(v_full + s, T::KV_BYTES);
-        for (int j = 0; j < T::NBOX; ++j)
-          tma_load_4d(Vs + s * T::KV_BYTES + j * T::KV_BOX, &tv, v_full + s,
-                      j * T::EPB, k0, g, b);
-      }
+  if (threadIdx.x == 0) {
+    // q, and the first S tiles of k and v; the warps refill the rings
+    mbar_expect_tx(q_full, T::Q_BYTES);
+    for (int j = 0; j < T::NBOX; ++j)
+      tma_load_4d(Qs + j * T::Q_BOX, &map_q, q_full, j * T::EPB, q0, h, b);
+    for (int t = 0; t < min(S, ntiles); ++t) {
+      load_k(t);
+      load_v(t);
     }
-  } else {
-    // ---- consumers: 64 query rows each ----
-    regs_inc<232>();
-    constexpr int NS = BKN / 2;          // score accumulator per thread
-    constexpr int NP = BKN / 16;         // k16 blocks of p
-    constexpr int CHN = T::CHN, NCH = T::NCH;
-    const int lane = threadIdx.x & 31;
-    const int wtid = threadIdx.x & 127;
-    const int gr = lane >> 2;            // fragment rows gr and gr + 8
-    const int tq = lane & 3;             // fragment columns 2 tq, +1
-    const int row0 = q0 + 64 * wg + 16 * (wtid >> 5) + gr;
-    const int pos0 = row0 + off;         // key position of row0; row0 + 8
-    // the key positions of this warpgroup's first and last rows
-    const int plo = q0 + 64 * wg + off;
-    const int phi = min(q0 + 64 * wg + 64, p.Sq) - 1 + off;
+  }
 
-    const float sl2 = p.scale * LOG2E;
-    const bool capped = p.cap != 0.0f;
-    const float c1 = p.cap * LOG2E;
-    const float c3 = capped ? 2.0f * p.scale * LOG2E / p.cap : 0.0f;
+  // ---- two warpgroups, 64 query rows each ----
+  constexpr int NS = BKN / 2;          // score accumulator per thread
+  constexpr int NP = BKN / 16;         // k16 blocks of p
+  constexpr int CHN = T::CHN, NCH = T::NCH;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  const int wtid = threadIdx.x & 127;
+  const int gr = lane >> 2;            // fragment rows gr and gr + 8
+  const int tq = lane & 3;             // fragment columns 2 tq, +1
+  const int row0 = q0 + 64 * wg + 16 * (wtid >> 5) + gr;
+  const int pos0 = row0 + off;         // key position of row0; row0 + 8
+  // the key positions of this warpgroup's first and last rows
+  const int plo = q0 + 64 * wg + off;
+  const int phi = min(q0 + 64 * wg + 64, p.Sq) - 1 + off;
 
-    float acc[NCH][CHN / 2];
+  const float sl2 = p.scale * LOG2E;
+  const float c1 = p.cap * LOG2E;
+  const float c3 = p.cap != 0.0f ? 2.0f * p.scale * LOG2E / p.cap : 0.0f;
+
+  float acc[NCH][CHN / 2];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < CHN / 2; ++i) acc[c][i] = 0.0f;
+  float sc[NS];
+  uint32_t ph[NP][4], pl[NP][4];
+  // running max per row (raw scores when fused, else log2 units), its
+  // offset in the exponent (log2 units), this thread's part of the row
+  // sums, and the factor on acc for the max's last move
+  float m[2] = {NEG_INF, NEG_INF};
+  float moff[2] = {FUSED ? 0.0f : NEG_INF, FUSED ? 0.0f : NEG_INF};
+  float l[2] = {0.0f, 0.0f};
+  float corr[2];
+
+  const uint64_t q_desc = smem_desc(Qs + 64 * wg * SW, 16, 8 * SW,
+                                    T::LAYOUT);
+  const uint64_t k_desc = smem_desc(Ks, 16, 8 * SW, T::LAYOUT);
+  const uint64_t v_desc = smem_desc(Vs, T::KV_BOX, 8 * SW, T::LAYOUT);
+
+  // tile t of k or v, once it has arrived (its descriptor)
+  auto k_at = [&](int t) {
+    mbar_wait(k_full + t % S, (t / S) & 1);
+    return opaque(k_desc) + (t % S * T::KV_BYTES >> 4);
+  };
+  auto v_at = [&](int t) {
+    mbar_wait(v_full + t % S, (t / S) & 1);
+    return opaque(v_desc) + (t % S * T::KV_BYTES >> 4);
+  };
+  // this warp is done with tile t of k or v (lane 0 reports): the last
+  // warp to be done brings tile t + S into the stage
+  auto done_k = [&](int t) {
+    if (lane == 0)
+      release(k_count + t % S, [&] { if (t + S < ntiles) load_k(t + S); });
+  };
+  auto done_v = [&](int t) {
+    if (lane == 0)
+      release(v_count + t % S, [&] { if (t + S < ntiles) load_v(t + S); });
+  };
+  // the masks run only on a tile that crosses the diagonal, the window's
+  // edge or Sk for some row of this warpgroup
+  auto edge = [&](int k0) {
+    return (p.causal && k0 + BKN - 1 > plo)
+           || (p.window && k0 <= phi - p.window) || k0 + BKN > p.Sk;
+  };
+
+  // Tile t: issue s = q k_t^T and acc += p_{t-1} v_{t-1}; wait for s alone
+  // and run tile t's softmax while p_{t-1} v_{t-1} runs; then wait for it,
+  // rescale acc and form p_t.  Every wgmma is issued on a path that all
+  // threads take.
+  mbar_wait(q_full, 0);
+  if (ntiles > 0) {
+    issue_qk<D>(sc, opaque(q_desc), k_at(0));
+    wgmma_wait<0>();
+    fence_regs(sc);
+    done_k(0);
+    softmax_tile<FUSED>(sc, m, moff, l, corr, edge(kbeg), p, kbeg + tq * 2,
+                        pos0, sl2, c1, c3);
+    split_p(sc, ph, pl);
+    for (int t = 1; t < ntiles; ++t) {
+      const int k0 = kbeg + t * BKN;
+      issue_qk<D>(sc, opaque(q_desc), k_at(t));
+      issue_pv<D>(acc, ph, pl, v_at(t - 1));
+      wgmma_wait<1>();
+      fence_regs(sc);
+      done_k(t);
+      softmax_tile<FUSED>(sc, m, moff, l, corr, edge(k0), p, k0 + tq * 2,
+                          pos0, sl2, c1, c3);
+      wgmma_wait<0>();
+      fence_acc(acc);
+      done_v(t - 1);
+      rescale(acc, corr);
+      split_p(sc, ph, pl);
+    }
+    issue_pv<D>(acc, ph, pl, v_at(ntiles - 1));
+    wgmma_wait<0>();
+    fence_acc(acc);
+    done_v(ntiles - 1);
+  }
+
+  bf16* o = static_cast<bf16*>(p.o) + b * p.o_b + h * p.o_h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= p.Sq) continue;
+    const float inv = 1.0f / fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
 #pragma unroll
-      for (int i = 0; i < CHN / 2; ++i) acc[c][i] = 0.0f;
-    float sc[NS];
-#pragma unroll
-    for (int i = 0; i < NS; ++i) sc[i] = 0.0f;
-    uint32_t ph[NP][4], pl[NP][4];
-    // running max per row (raw scores when fused, else log2 units), its
-    // offset in the exponent (log2 units), and this thread's part of the
-    // row sums
-    float m[2] = {NEG_INF, NEG_INF};
-    float moff[2] = {FUSED ? 0.0f : NEG_INF, FUSED ? 0.0f : NEG_INF};
-    float l[2] = {0.0f, 0.0f};
-
-    const uint64_t q_desc = smem_desc(Qs + 64 * wg * SW, 16, 8 * SW,
-                                      T::LAYOUT);
-    const uint64_t k_desc = smem_desc(Ks, 16, 8 * SW, T::LAYOUT);
-    const uint64_t v_desc = smem_desc(Vs, T::KV_BOX, 8 * SW, T::LAYOUT);
-
-    mbar_wait(q_full, 0);
-    // Tile t: issue s = q k_t^T; wait for it (and for p_{t-1} v_{t-1},
-    // issued at the end of the previous tile); the softmax; then issue
-    // acc += p_t v_t and go on without waiting for it (with OVERLAP;
-    // else wait).  Every wgmma is issued on a path all threads take, once
-    // per tile.
-    for (int t = 0; t < ntiles; ++t) {
-      const int s = t % S;
-      const uint32_t par = (t / S) & 1;
-      const int k0 = kbeg + t * BKN;
-      mbar_wait(k_full + s, par);
-      wgmma_fence();
-      {
-        // a descriptor's low bits are the start address / 16, so moving
-        // it is adding the offset / 16; each goes through a register move
-        // the compiler cannot see through, so that it forms them one at a
-        // time here instead of holding them live
-        uint64_t dq = opaque(q_desc);
-        uint64_t dk = opaque(k_desc) + (s * T::KV_BYTES >> 4);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wgmma_ss<BKN, 0>(sc, dq, dk, kk > 0);
-          // the next k16 step: 32 bytes on along the row, or the next box;
-          // one descriptor of each operand live at a time
-          constexpr int KS = T::EPB / 16;   // k16 steps per box row
-          const bool wrap = (kk + 1) % KS == 0;
-          dq = opaque(dq + ((wrap ? T::Q_BOX - (KS - 1) * 32 : 32) >> 4));
-          dk = opaque(dk + ((wrap ? T::KV_BOX - (KS - 1) * 32 : 32) >> 4));
-        }
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) fence_regs(acc[c]);
-      fence_regs(sc);
-      if (lane == 0) {
-        mbar_arrive(k_empty + s);
-        if (T::OVERLAP && t > 0) mbar_arrive(v_empty + (t - 1) % S);
-      }
-
-      // the masks, only on a tile that crosses the diagonal, the window's
-      // edge or Sk for some row of this warpgroup
-      const bool edge = (p.causal && k0 + BKN - 1 > plo)
-                        || (p.window && k0 <= phi - p.window)
-                        || k0 + BKN > p.Sk;
-      float corr[2];
-      if constexpr (FUSED) {
-        // no cap, scale > 0: the row max of the raw scores, then
-        // p = 2^(s (scale log2 e) - m (scale log2 e)), one FMA and one
-        // ex2 a score.  A row with no visible key yet keeps offset 0, so
-        // its masked scores give p = 0 (the reference's p = 1 there is
-        // wiped by the next correction, exp(NEG_INF - m) = 0, all the
-        // same); every row has a visible key in some tile.
-        if (edge) apply_masks(sc, p, k0 + tq * 2, pos0);
-        float mt[2];
-        row_max<NS>(sc, mt);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float mn = fmaxf(m[r], mt[r]);
-          const float o2 = mn == NEG_INF ? 0.0f : mn * sl2;
-          // acc and l are still 0 while no key was visible
-          corr[r] = m[r] == NEG_INF ? 0.0f : ex2(moff[r] - o2);
-          m[r] = mn;
-          moff[r] = o2;
-        }
-#pragma unroll
-        for (int i = 0; i < NS; ++i)
-          sc[i] = ex2(fmaf(sc[i], sl2, -moff[(i >> 1) & 1]));
-      } else {
-        // scores in log2 units, x = tanh(s scale / cap) cap log2 e
-        if (capped) {
-#pragma unroll
-          for (int i = 0; i < NS; ++i)
-            sc[i] = c1 - 2.0f * c1 * rcp(1.0f + ex2(sc[i] * c3));
-        } else {
-#pragma unroll
-          for (int i = 0; i < NS; ++i) sc[i] *= sl2;
-        }
-        if (edge) apply_masks(sc, p, k0 + tq * 2, pos0);
-        float mt[2];
-        row_max<NS>(sc, mt);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float mn = fmaxf(m[r], mt[r]);
-          corr[r] = ex2(moff[r] - mn);
-          m[r] = mn;
-          moff[r] = mn;
-        }
-#pragma unroll
-        for (int i = 0; i < NS; ++i) sc[i] = ex2(sc[i] - moff[(i >> 1) & 1]);
-      }
-      float ls[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int i = 0; i < NS; ++i) ls[(i >> 1) & 1] += sc[i];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ls[r];
-      // a max that moved in no row of the warp leaves acc as it is
-      // (x 1.0 is exact, so skipping it changes no bit)
-      if (!__all_sync(0xffffffffu, corr[0] == 1.0f && corr[1] == 1.0f)) {
-#pragma unroll
-        for (int c = 0; c < NCH; ++c)
-#pragma unroll
-          for (int i = 0; i < CHN / 2; ++i) acc[c][i] *= corr[(i >> 1) & 1];
-      }
-#pragma unroll
-      for (int kk = 0; kk < NP; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          split_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1], ph[kk][j],
-                     pl[kk][j]);
-
-      // acc += p v_t as two bf16 products, hi and lo
-      mbar_wait(v_full + s, par);
-      wgmma_fence();
-      {
-        const uint64_t vd = opaque(v_desc) + (s * T::KV_BYTES >> 4);
-#pragma unroll
-        for (int kk = 0; kk < NP; ++kk) {
-#pragma unroll
-          for (int c = 0; c < NCH; ++c) {
-            const uint64_t d = vd + (((c * CHN / T::EPB) * T::KV_BOX
-                                      + kk * 16 * SW) >> 4);
-            wgmma_rs<CHN>(acc[c], ph[kk], d);
-            wgmma_rs<CHN>(acc[c], pl[kk], d);
-          }
-        }
-      }
-      wgmma_commit();
-      if constexpr (!T::OVERLAP) {
-        wgmma_wait<0>();
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) fence_regs(acc[c]);
-        if (lane == 0) mbar_arrive(v_empty + s);
-      }
-    }
-    if constexpr (T::OVERLAP) {
-      wgmma_wait<0>();
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) fence_regs(acc[c]);
-      if (ntiles > 0 && lane == 0) mbar_arrive(v_empty + (ntiles - 1) % S);
-    }
-
-    bf16* o = static_cast<bf16*>(p.o) + b * p.o_b + h * p.o_h;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      const int row = row0 + 8 * r;
-      if (row >= p.Sq) continue;
-      const float inv = 1.0f / fmaxf(l[r], 1e-30f);
-#pragma unroll
-      for (int c = 0; c < NCH; ++c)
-#pragma unroll
-        for (int n = 0; n < CHN / 8; ++n)
-          *reinterpret_cast<uint32_t*>(
-              o + static_cast<long long>(row) * p.o_s + c * CHN + n * 8
-              + tq * 2) = pack_bf16(acc[c][4 * n + 2 * r] * inv,
-                                    acc[c][4 * n + 2 * r + 1] * inv);
-    }
+      for (int n = 0; n < CHN / 8; ++n)
+        *reinterpret_cast<uint32_t*>(
+            o + static_cast<long long>(row) * p.o_s + c * CHN + n * 8
+            + tq * 2) = pack_bf16(acc[c][4 * n + 2 * r] * inv,
+                                  acc[c][4 * n + 2 * r + 1] * inv);
   }
 }
 

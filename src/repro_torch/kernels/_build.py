@@ -17,11 +17,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -29,8 +30,9 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda")
 
 _libs: Dict[str, ctypes.CDLL] = {}
-#: per-source compiler output of the last build (ptxas register and
-#: shared-memory report), and its wall time in seconds
+#: per-source compiler output (ptxas' register, spill and shared-memory
+#: report; kept beside the library, so a cached build has it too), and
+#: the wall time of the build in this process, in seconds
 build_log: Dict[str, str] = {}
 build_seconds: Dict[str, float] = {}
 
@@ -64,6 +66,9 @@ def build_all() -> Dict[str, Path]:
     for src in srcs:
         out = paths[src.stem]
         if out.exists():
+            saved = out.with_suffix(".log")
+            if saved.exists():
+                build_log[src.stem] = saved.read_text()
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
@@ -79,10 +84,61 @@ def build_all() -> Dict[str, Path]:
             failed.append(f"nvcc failed on {src.name} "
                           f"(exit {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
+
+
+_ENTRY = re.compile(r"(?:Compiling entry function|Function properties for)"
+                    r" '?([\w$.]+)'?")
+_IN_FUNCTION = re.compile(r"function '([\w$.]+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_FAULT = re.compile(r"\(C75\d\d\)")
+
+
+def ptxas_kernels(log: str) -> Dict[str, dict]:
+    """Each kernel of a ``-Xptxas -v`` log, by its (mangled) name: the
+    registers it was given, its spill stores and loads in bytes, and its
+    faults: every line that reports a spill or a C75xx warning (a wgmma
+    serialised, e.g. C7512 for want of registers)."""
+    kernels: Dict[str, dict] = {}
+    current = None
+
+    def entry(name):
+        return kernels.setdefault(name, dict(registers=None, spill_stores=0,
+                                             spill_loads=0, faults=[]))
+    for ln in log.splitlines():
+        m = _ENTRY.search(ln)
+        if m:
+            current = m.group(1)
+            entry(current)
+            continue
+        named = _IN_FUNCTION.search(ln)
+        name = named.group(1) if named else current
+        if name is None:
+            continue
+        k = entry(name)
+        m = _SPILL.search(ln)
+        if m:
+            k["spill_stores"], k["spill_loads"] = map(int, m.groups())
+            if k["spill_stores"] or k["spill_loads"]:
+                k["faults"].append(ln.strip())
+        m = _REGS.search(ln)
+        if m:
+            k["registers"] = int(m.group(1))
+        if _FAULT.search(ln):
+            k["faults"].append(ln.strip())
+    return kernels
+
+
+def ptxas_faults(log: str) -> List[Tuple[str, str]]:
+    """``(kernel, line)`` for every spill and every C75xx warning that
+    ``-Xptxas -v`` reported; empty for a clean build."""
+    return [(name, ln) for name, k in ptxas_kernels(log).items()
+            for ln in k["faults"]]
 
 
 def library(name: str) -> ctypes.CDLL:

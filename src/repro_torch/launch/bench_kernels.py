@@ -22,7 +22,12 @@ heads of 128, 4,136 slots) and seamless-m4t-medium's cross attention (16
 each beside SDPA; and
 ``ssd`` (K6) at zamba2-1.2b's prefill (B=2, 64 heads, P=N=64, float32)
 at each of ``--ssd-lengths`` (S=4,096 is the served prompt; longer ones
-show how the time grows with the number of chunks).  Every timing cycles
+show how the time grows with the number of chunks); and ``mha`` (K3) at
+``FLASH_SHAPES``, bf16, B=2: gemma2-9b's prefill (16 / 8 heads of 256,
+S=4,608, cap 50, window 4,096 and 0, and cap 0 beside SDPA), gemma-2b's
+training forward (8 / 1 heads of 256, S=2,048) and the other served
+prefills, each held to the plain version within the bf16 bar, with
+ptxas' report of each bf16 K3 kernel.  Every timing cycles
 through enough distinct inputs that they outgrow the card's 50 MB L2,
 since a layer finds its cache and its activations cold.  Each call is
 timed twice: as a CUDA graph of the loop replayed between CUDA events
@@ -361,7 +366,131 @@ def bench_ssd(reps: int, dev, batch: int = 2, s: int = 4096, h: int = 64,
     return row
 
 
-KERNELS = ("queue_booking", "maxplus_scan", "decode_attention", "ssd_scan")
+# (label, config, Sq, Sk, causal, window, logit cap): K3 at the served
+# prefill shapes and gemma-2b's training forward, B=2; heads, head_dim
+# and scale from the config
+FLASH_SHAPES = [
+    ("gemma2-9b local", "gemma2-9b", PROMPT, PROMPT, True, 4096, 50.0),
+    ("gemma2-9b global", "gemma2-9b", PROMPT, PROMPT, True, 0, 50.0),
+    ("gemma2-9b cap 0", "gemma2-9b", PROMPT, PROMPT, True, 0, 0.0),
+    ("gemma-2b training", "gemma-2b", 2048, 2048, True, 0, 0.0),
+    ("granite-moe-3b-a800m", "granite-moe-3b-a800m", PROMPT2, PROMPT2, True,
+     0, 0.0),
+    ("qwen2-vl-2b", "qwen2-vl-2b", PROMPT2, PROMPT2, True, 0, 0.0),
+    ("seamless-m4t-medium cross", "seamless-m4t-medium", 1024, PROMPT2,
+     False, 0, 0.0),
+]
+BF16_OPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
+FLASH_BAR = (1e-3, 1.6e-2)   # bf16: |kernel - plain| <= a + r |plain|
+
+
+def attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a head attends: query i at key position
+    i + Sk - Sq sees keys (i + Sk - Sq - window, i + Sk - Sq] (causal),
+    every key otherwise."""
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    return sum(min(i + off, sk - 1) + 1
+               - (max(0, i + off - window + 1) if window else 0)
+               for i in range(sq))
+
+
+def flash_ops_ms(batch, hq, d, sq, sk, causal, window=0) -> float:
+    """K3's two products (q k^T and p v over the attended pairs) at the
+    bf16 tensor-core rate, in ms."""
+    return 1e3 * 4 * d * batch * hq * attended_pairs(sq, sk, causal,
+                                                     window) / BF16_OPS_PER_S
+
+
+def flash_bound(batch, hq, hkv, d, sq, sk, causal, window=0) -> tuple:
+    """K3's bound in ms and what sets it: the larger of its operations
+    (``flash_ops_ms``) and its bytes (q, k and v read, the output written
+    once) at 3.35 TB/s."""
+    ops_ms = flash_ops_ms(batch, hq, d, sq, sk, causal, window)
+    bytes_ms = 1e3 * 2 * batch * d * (2 * sq * hq + 2 * sk * hkv) \
+        / HBM_BYTES_PER_S
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def flash_ptxas(log: str) -> dict:
+    """ptxas' report of each bf16 K3 kernel in a build log, by its
+    template arguments (``flash_attention_wgmma_kernel<D, fused>``):
+    registers, spill bytes and fault lines (``_build.ptxas_kernels``;
+    empty for an older checkout without it)."""
+    import re
+    from repro_torch.kernels import _build
+    parse = getattr(_build, "ptxas_kernels", lambda _: {})
+    found = []
+    for name, k in parse(log).items():
+        m = re.search(r"flash_attention_wgmma_kernelILi(\d+)ELb([01])E", name)
+        if m:
+            found.append(((int(m.group(1)), m.group(2)), k))
+    return {f"flash_attention_wgmma_kernel<{d}, "
+            f"{'true' if fused == '1' else 'false'}>": k
+            for (d, fused), k in sorted(found)}
+
+
+def flash_sets(hq, hkv, d, sq, sk, seed, dev, batch: int = 2):
+    """Enough distinct bf16 (q, k, v) to outgrow the L2, each a
+    ``[B, H, S, D]`` view of the model's ``[B, S, H, D]`` layout, as the
+    prefill hands them to the kernel."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(copies(2 * batch * d * (sq * hq + 2 * sk * hkv))):
+        q = torch.randn((batch, sq, hq, d), generator=gen, device=dev)
+        kv = torch.randn((batch, sk, 2 * hkv, d), generator=gen, device=dev)
+        k, v = kv.bfloat16().split(hkv, dim=2)
+        out.append((q.bfloat16().transpose(1, 2), k.transpose(1, 2),
+                    v.transpose(1, 2)))
+    return out
+
+
+def bench_flash(reps: int, dev, batch: int = 2) -> dict:
+    """K3 at ``FLASH_SHAPES``: its device time, held to the plain version
+    within the bf16 bar; beside it SDPA where the shape has no cap or
+    window, and the bound; and ptxas' report of the bf16 kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import attention_plain, mha
+    from repro_torch.models.transformer import _attn_scale
+    rows = []
+    for label, arch, sq, sk, causal, window, cap in FLASH_SHAPES:
+        cfg = get_config(arch)
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        opts = dict(causal=causal, window=window, logit_cap=cap,
+                    scale=_attn_scale(cfg))
+        sets = flash_sets(hq, hkv, d, sq, sk, 11, dev, batch)
+        kern = lambda q, k, v: mha(q, k, v, **opts)  # noqa: E731
+        want = attention_plain(*sets[0], **opts).float()
+        a, r = FLASH_BAR
+        diff = (kern(*sets[0]).float() - want).abs()
+        row = dict(shape=label, B=batch, Hq=hq, Hkv=hkv, D=d, Sq=sq, Sk=sk,
+                   causal=causal, window=window, cap=cap, copies=len(sets),
+                   max_abs_err=float(diff.max()),
+                   bar_share=float((diff / (a + r * want.abs())).max()),
+                   ms=graph_ms(kern, sets, reps))
+        del want, diff
+        if cap == 0.0 and window == 0:
+            sdpa_sets = [tuple(x.contiguous() for x in s_) for s_ in sets]
+            row["sdpa_ms"] = graph_ms(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, scale=opts["scale"],
+                    enable_gqa=True), sdpa_sets, reps)
+            del sdpa_sets
+        del sets
+        torch.cuda.empty_cache()
+        row["bound_ms"], row["bound_by"] = flash_bound(
+            batch, hq, hkv, d, sq, sk, causal, window)
+        rows.append(row)
+    return dict(ptxas=flash_ptxas(_build.build_log.get("flash_attention",
+                                                        "")),
+                rows=rows)
+
+
+KERNELS = ("queue_booking", "maxplus_scan", "decode_attention", "ssd_scan",
+           "flash_attention")
 
 
 def main(argv=None) -> int:
@@ -395,6 +524,8 @@ def main(argv=None) -> int:
     if "ssd_scan" in only:
         out["ssd_scan"] = [bench_ssd(max(2, args.reps // 4), dev, s=int(s))
                            for s in args.ssd_lengths.split(",")]
+    if "flash_attention" in only:
+        out["flash_attention"] = bench_flash(max(2, args.reps // 4), dev)
     for r in out["queue_booking"]:
         print(f"queue_booking {r['shape']} (T={r['T']}, N={r['N']}, "
               f"W={r['W']}): graph {r['ms']:.5f} ms; event loop "
@@ -425,6 +556,22 @@ def main(argv=None) -> int:
               f"{r['ms']:.5f} ms; event loop {r['loop_ms']:.5f} ms; bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}) [{name}]",
               flush=True)
+    if out["flash_attention"]:
+        fa = out["flash_attention"]
+        for kname, k in sorted(fa["ptxas"].items()):
+            print(f"flash_attention {kname}: {k['registers']} registers, "
+                  f"{k['spill_stores']} / {k['spill_loads']} bytes spill "
+                  f"stores / loads, {len(k['faults'])} fault line(s) "
+                  + " | ".join(k["faults"]), flush=True)
+        for r in fa["rows"]:
+            print(f"flash_attention {r['shape']} ({r['Hq']}/{r['Hkv']} heads "
+                  f"of {r['D']}, Sq={r['Sq']}, Sk={r['Sk']}, window "
+                  f"{r['window']}, cap {r['cap']}): graph {r['ms']:.4f} ms, "
+                  f"{r['bar_share']:.3f} of the bar"
+                  + (f"; SDPA {r['sdpa_ms']:.4f} ms" if "sdpa_ms" in r
+                     else "")
+                  + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+                  f"[{name}]", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -208,6 +208,12 @@ FLASH_CASES = [
     # seamless-m4t-medium's cross attention: non-causal, Sq != Sk
     (1, 16, 16, 100, 300, 64, False, 0, 0.0),
     (2, 16, 16, 256, 77, 64, False, 0, 0.0),
+    # D=256: gemma-2b's group of 8 (one kv head); non-causal with Sq != Sk;
+    # a ragged Sq under Sk, the window's edge inside a key tile, a cap
+    (2, 8, 1, 300, 300, 256, True, 0, 0.0),
+    (1, 16, 8, 100, 300, 256, False, 0, 0.0),
+    (2, 8, 1, 256, 77, 256, False, 0, 0.0),
+    (1, 16, 8, 100, 333, 256, True, 97, 50.0),
 ]
 # b, hq, hkv, c, d, valid, cap: the reference's cases, a ring, gemma2-9b's,
 # qwen2-vl-2b's and seamless-m4t-medium's
@@ -252,9 +258,10 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, hq, hkv, sq, sk, d,
 
 
 # sq, sk, window, cap: ragged 128-row q-tiles, Sk > Sq (the queries sit
-# at the end), windows whose edge falls inside a key tile
+# at the end), windows whose edge falls inside a key tile (of 32 and of
+# 64 keys, D=256's tiles), a cap
 EDGE_CASES = [(100, 300, 70, 30.0), (200, 200, 0, 50.0), (320, 450, 200, 0.0),
-              (200, 333, 97, 0.0)]
+              (200, 333, 97, 0.0), (130, 390, 161, 50.0)]
 
 
 @pytest.mark.cuda
